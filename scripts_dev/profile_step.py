@@ -1,11 +1,11 @@
-"""Per-piece timing of the HALS iteration on the real TPU (roofline work).
+"""Per-piece timing of the HALS iteration on the device (roofline work).
 
 Times each component of parallel/step.py::one_iteration as its own chained
 jitted program on the bench shapes (256x256x2000, K=192, radius 13) so we
-can see where the ~22 ms/iteration actually goes:
+can see where an iteration's time goes:
 
   grams   : the two (d,T)x(T,K) P-contractions + KxK terms
-  stencil : GA = W(a_k) MXU banded stencil over K footprint images
+  stencil : GA = W(a_k) ring stencil over K footprint images
   hals    : spatial + temporal blocked-GS sweeps (n_hals=1)
   median  : sub-median baseline subtraction
   deconv  : noise_psd + foopsi OASIS over K traces
@@ -24,8 +24,7 @@ import jax.numpy as jnp
 
 
 def force(x):
-    leaves = [l for l in jax.tree.leaves(x) if hasattr(l, "dtype")]
-    return float(jnp.sum(jnp.abs(leaves[0]).astype(jnp.float32)))
+    return jax.block_until_ready(x)
 
 
 def timeit(fn, *args, chain_div=1):
@@ -38,14 +37,14 @@ def timeit(fn, *args, chain_div=1):
 
 
 def main():
-    from cnmf_e_tpu.utils.cache import enable_compilation_cache
+    from cnmf_e.utils.cache import enable_compilation_cache
     enable_compilation_cache()
-    from cnmf_e_tpu.ops.hals import hals_spatial_sweeps, hals_temporal_sweeps
-    from cnmf_e_tpu.ops.noise import noise_psd
-    from cnmf_e_tpu.ops.oasis import foopsi_ar1
-    from cnmf_e_tpu.ops.ring import ring_offsets
-    from cnmf_e_tpu.parallel.step import (StepState, make_bg_projection,
-                                          make_hals_iteration)
+    from cnmf_e.ops.hals import hals_spatial_sweeps, hals_temporal_sweeps
+    from cnmf_e.ops.noise import noise_psd
+    from cnmf_e.ops.oasis import foopsi_ar1
+    from cnmf_e.ops.ring import ring_offsets
+    from cnmf_e.parallel.step import (StepState, make_bg_projection,
+                                      make_hals_iteration)
 
     H = W = 256
     T = 2000

@@ -2,7 +2,7 @@
 
 Independent float64 implementations of the published algorithms (OASIS
 pool merging, Friedrich et al. NIPS 2016; AR kernels) used to validate the
-TPU kernels. Deliberately simple and loop-based.
+batched kernels. Deliberately simple and loop-based.
 """
 
 import numpy as np

@@ -1,20 +1,19 @@
-"""Overlap-graph coloring + the Pallas free-block fast path.
+"""Overlap-graph coloring for the colored HALS update.
 
 The colored update is the reference's independent-set trick
-(``utilities/update_order.m:1-21``) recast for the fused TPU sweeps: rows
-ordered so pairwise-independent neurons share a sweep block, which then
-updates vectorized — bitwise identical to the sequential Gauss-Seidel
-over the same ordering."""
+(``utilities/update_order.m:1-21``) recast for the fused sweeps: rows
+ordered so pairwise-independent neurons share a sweep step, which then
+updates vectorized (the kernel's class schedule is pinned in
+tests/test_pallas_hals.py)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cnmf_e_tpu.ops.coloring import (block_free_flags, color_order,
-                                     greedy_color, overlap_adjacency)
-from cnmf_e_tpu.ops.hals import hals_spatial_sweeps
-from cnmf_e_tpu.ops.pallas_hals import hals_sweeps_rows_pallas
+from cnmf_e.ops.coloring import (color_order, greedy_color,
+                                 overlap_adjacency)
+from cnmf_e.ops.hals import hals_spatial_sweeps
 
 
 def _compact_problem(seed=0, H=28, W=28, K=21, T=90, rad=3):
@@ -62,18 +61,6 @@ def test_color_order_roundtrip():
     assert np.all(np.diff(colors) >= 0), "order not sorted by color"
 
 
-def test_block_free_flags():
-    V = np.zeros((8, 8), np.float32)
-    np.fill_diagonal(V, 2.0)
-    V[4, 6] = V[6, 4] = 0.5                 # couples rows in block 1
-    flags = np.asarray(block_free_flags(jnp.asarray(V), block=4))
-    np.testing.assert_array_equal(flags, [1, 0])
-    # gated rows' couplings are ignored
-    gate = jnp.asarray([1, 1, 1, 1, 1, 1, 0, 1], jnp.float32)
-    flags = np.asarray(block_free_flags(jnp.asarray(V), block=4, gate=gate))
-    np.testing.assert_array_equal(flags, [1, 1])
-
-
 def test_overlap_adjacency_matches_supports():
     _, _, A, _ = _compact_problem()
     adj = np.asarray(overlap_adjacency(jnp.asarray(A)))
@@ -84,67 +71,15 @@ def test_overlap_adjacency_matches_supports():
     assert not adj.all(), "compact problem must have non-overlapping pairs"
 
 
-def test_flags_bitwise_spatial_masked():
-    """Masked spatial sweeps: free-block vectorized updates are bitwise
-    identical to the sequential inner loop (the correction dot sums exact
-    zeros on disjoint masks) even though the trace Gram V is dense."""
-    U, V, A, _ = _compact_problem(seed=3)
-    K = A.shape[0]
-    mask = jnp.asarray(A > 0)
-    order, inverse = color_order(overlap_adjacency(jnp.asarray(A)))
-    Up, Vp = jnp.asarray(U)[order], jnp.asarray(V)[order][:, order]
-    Ap, Mp = jnp.asarray(A)[order], mask[order]
-    Mf = Mp.astype(jnp.float32)
-    flags = block_free_flags(Mf @ Mf.T, block=8)
-    assert int(jnp.sum(flags)) > 0, "coloring produced no free blocks"
-    gate = jnp.ones(K, jnp.float32)
-    seq = hals_sweeps_rows_pallas(Up, Vp, Ap, gate=gate, mask=Mp,
-                                  n_iter=3, block=8, relu=True,
-                                  interpret=True)
-    fast = hals_sweeps_rows_pallas(Up, Vp, Ap, gate=gate, mask=Mp,
-                                   n_iter=3, block=8, relu=True,
-                                   flags=flags, interpret=True)
-    np.testing.assert_array_equal(np.asarray(fast), np.asarray(seq))
-    # and the (unpermuted-order) XLA path agrees after inverse-permuting
-    ref = hals_spatial_sweeps(jnp.asarray(U).T[:, order],
-                              Vp, Ap.T, mask=Mp.T, n_iter=3,
-                              use_pallas=False)
-    np.testing.assert_allclose(np.asarray(fast), np.asarray(ref).T,
-                               rtol=2e-5, atol=2e-5)
-
-
-def test_flags_bitwise_temporal():
-    """Temporal sweeps: disjoint footprints give exact zeros in V = A A^T,
-    so flagged blocks match the sequential loop bitwise."""
-    U, _, A, C = _compact_problem(seed=4)
-    K, T = C.shape
-    Aj = jnp.asarray(A)
-    order, _ = color_order(overlap_adjacency(Aj))
-    Ap = Aj[order]
-    Vt = Ap @ Ap.T
-    rng = np.random.default_rng(0)
-    Ut = jnp.asarray(rng.standard_normal((K, T)).astype(np.float32))
-    Cp = jnp.asarray(C)[order]
-    flags = block_free_flags(Vt, block=8)
-    assert int(jnp.sum(flags)) > 0
-    gate = jnp.ones(K, jnp.float32)
-    seq = hals_sweeps_rows_pallas(Ut, Vt, Cp, gate=gate, n_iter=2,
-                                  block=8, relu=False, interpret=True)
-    fast = hals_sweeps_rows_pallas(Ut, Vt, Cp, gate=gate, n_iter=2,
-                                   block=8, relu=False, flags=flags,
-                                   interpret=True)
-    np.testing.assert_array_equal(np.asarray(fast), np.asarray(seq))
-
-
 def test_colored_iteration_matches_explicit():
     """make_hals_iteration(colored=True) == explicit masked sequential
     sweeps over the same (color-sorted) ordering, un-permuted."""
-    from cnmf_e_tpu.ops.hals import hals_temporal_sweeps
-    from cnmf_e_tpu.ops.morphology import search_locations_dilate
-    from cnmf_e_tpu.ops.ring import ring_offsets
-    from cnmf_e_tpu.ops.stats import submedian_mean
-    from cnmf_e_tpu.parallel.step import (StepState, make_bg_projection,
-                                          make_hals_iteration)
+    from cnmf_e.ops.hals import hals_temporal_sweeps
+    from cnmf_e.ops.morphology import search_locations_dilate
+    from cnmf_e.ops.ring import ring_offsets
+    from cnmf_e.ops.stats import submedian_mean
+    from cnmf_e.parallel.step import (StepState, make_bg_projection,
+                                      make_hals_iteration)
 
     H = W = 32
     T, K, radius = 64, 12, 4

@@ -1,15 +1,15 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e_tpu.config import CNMFEParams, SpatialParams
-from cnmf_e_tpu.models.merge import merge_pairs
-from cnmf_e_tpu.models.qc import order_neurons
-from cnmf_e_tpu.models.state import empty_state
-from cnmf_e_tpu.ops.ar import make_G_matrix
-from cnmf_e_tpu.ops.lowrank import kmeans_pp, sparse_nmf_init
-from cnmf_e_tpu.ops.morphology import (search_locations_ellipse,
-                                       threshold_components)
-from cnmf_e_tpu.utils.simulate import simulate_movie
+from cnmf_e.config import CNMFEParams, SpatialParams
+from cnmf_e.models.merge import merge_pairs
+from cnmf_e.models.qc import order_neurons
+from cnmf_e.models.state import empty_state
+from cnmf_e.ops.ar import make_G_matrix
+from cnmf_e.ops.lowrank import kmeans_pp, sparse_nmf_init
+from cnmf_e.ops.morphology import (search_locations_ellipse,
+                                   threshold_components)
+from cnmf_e.utils.simulate import simulate_movie
 
 
 def test_make_G_matrix():
@@ -93,7 +93,7 @@ def test_order_neurons_keys():
 def test_fast_median_matches_order_statistic(rng):
     """fast_median converges to the lower-middle order statistic."""
     import jax.numpy as jnp
-    from cnmf_e_tpu.ops.stats import fast_median
+    from cnmf_e.ops.stats import fast_median
     for shape, ax in [((19, 201), -1), ((16, 200), -1), ((60, 7, 5), 0)]:
         x = (rng.standard_normal(shape) * rng.uniform(0.1, 50)
              ).astype(np.float32)
@@ -105,7 +105,7 @@ def test_fast_median_matches_order_statistic(rng):
 
 def test_submedian_mean_matches_numpy(rng):
     import jax.numpy as jnp
-    from cnmf_e_tpu.ops.stats import submedian_mean
+    from cnmf_e.ops.stats import submedian_mean
     x = (rng.standard_normal((12, 301)) * 3 + 1).astype(np.float32)
     med = np.sort(x, -1)[:, 150]
     ref = np.array([x[i][x[i] < med[i]].mean() for i in range(12)])
@@ -114,7 +114,7 @@ def test_submedian_mean_matches_numpy(rng):
 
 
 def test_fast_median_masked_matches_numpy(rng):
-    from cnmf_e_tpu.ops.stats import fast_median_masked
+    from cnmf_e.ops.stats import fast_median_masked
     x = rng.standard_normal((40, 101)).astype(np.float32) * 3.0
     mask = rng.random(101) < 0.4
     out = np.asarray(fast_median_masked(jnp.asarray(x),

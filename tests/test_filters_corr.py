@@ -1,10 +1,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e_tpu.ops.corr import correlation_image, correlation_pnr
-from cnmf_e_tpu.ops.filters import (box_downsample, filter_movie,
-                                    gaussian_psf, neighbor_kernel)
-from cnmf_e_tpu.utils.simulate import simulate_movie
+from cnmf_e.ops.corr import correlation_image, correlation_pnr
+from cnmf_e.ops.filters import (box_downsample, filter_movie,
+                                gaussian_psf, neighbor_kernel)
+from cnmf_e.utils.simulate import simulate_movie
 
 
 def test_gaussian_psf_properties():
@@ -65,15 +65,14 @@ def test_box_downsample():
 
 
 def test_filter_movie_mxu_matches_conv(rng):
-    """The separable banded-matmul stencil (TPU path) equals the conv path
-    including replicate-edge handling, for both gaussian and
-    center-surround PSFs and an asymmetric PSF."""
-    from cnmf_e_tpu.ops.filters import (_filter_movie_mxu, filter_movie,
-                                        gaussian_psf)
-    import jax
+    """The separable banded-matmul stencil (the one filter path) equals
+    the conv reference including replicate-edge handling, for both
+    gaussian and center-surround PSFs and an asymmetric PSF."""
+    from cnmf_e.ops.filters import (filter_movie, filter_movie_conv,
+                                    gaussian_psf)
     Y = jnp.asarray(rng.standard_normal((7, 40, 56)), jnp.float32)
     asym = rng.standard_normal((5, 7)).astype(np.float32)
     for psf in (gaussian_psf(2.0, False), gaussian_psf(2.5, True), asym):
-        ref = np.asarray(filter_movie(Y, psf))   # conv path on CPU
-        out = np.asarray(_filter_movie_mxu(Y, psf))
+        ref = np.asarray(filter_movie_conv(Y, psf))
+        out = np.asarray(filter_movie(Y, psf))
         np.testing.assert_allclose(out, ref, rtol=2e-4, atol=2e-4)

@@ -2,9 +2,9 @@ import numpy as np
 import jax.numpy as jnp
 import scipy.optimize
 
-from cnmf_e_tpu.config import DeconvParams
-from cnmf_e_tpu.ops.oasis import (constrained_ar1, deconvolve, foopsi_ar1,
-                                  oasis_ar1, thresholded_ar1)
+from cnmf_e.config import DeconvParams
+from cnmf_e.ops.oasis import (constrained_ar1, deconvolve, foopsi_ar1,
+                              oasis_ar1, thresholded_ar1)
 from tests.oracles import ar1_trace, oasis_ar1_oracle
 
 
@@ -142,7 +142,7 @@ def test_deconvolve_dispatch(rng):
 
 
 def test_optimize_g_recovers_coefficient(rng):
-    from cnmf_e_tpu.ops.oasis import optimize_g
+    from cnmf_e.ops.oasis import optimize_g
     g_true = 0.9
     ys = np.stack([ar1_trace(rng, 1500, g=g_true, sn=0.15, rate=0.04)[0]
                    for _ in range(3)])
@@ -155,7 +155,7 @@ def test_windowed_long_T_matches_direct(rng):
     """T > 4096 routes through the overlap-windowed solve; it must match
     the direct divide-and-conquer result away from (and at) window seams
     (reference windowing precedent: onnls.m:14-19)."""
-    from cnmf_e_tpu.ops.oasis import _oasis_ar1_windowed, oasis_ar1
+    from cnmf_e.ops.oasis import _oasis_ar1_windowed, oasis_ar1
     K, T, g_true = 3, 9000, 0.95
     C = np.zeros((K, T), np.float32)
     S = (rng.random((K, T)) < 0.02) * rng.uniform(0.5, 1.5, (K, T))

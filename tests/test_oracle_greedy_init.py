@@ -6,7 +6,7 @@ transliteration of the reference's serial one-neuron-at-a-time peel —
 order filters, weak-signal test, local HY/PNR/Cn refresh after each peel)
 with ``extract_ac.m:19-95`` (correlation-masked trace, background-median
 regressor, 3-column LS, circular + connectivity constraints) — compared
-against the batched TPU redesign ``models/initialize.py``.
+against the batched redesign ``models/initialize.py``.
 
 The redesign peels in conflict-free ROUNDS instead of one neuron at a
 time (documented deviation, SURVEY.md section 7 "hard parts"), so parity
@@ -25,11 +25,11 @@ import jax.numpy as jnp
 import pytest
 import scipy.ndimage as ndi
 
-from cnmf_e_tpu.config import CNMFEParams, InitParams
-from cnmf_e_tpu.models.initialize import initialize_greedy
-from cnmf_e_tpu.ops.filters import gaussian_psf
-from cnmf_e_tpu.utils.metrics import detection_f1, trace_corr
-from cnmf_e_tpu.utils.simulate import simulate_movie
+from cnmf_e.config import CNMFEParams, InitParams
+from cnmf_e.models.initialize import initialize_greedy
+from cnmf_e.ops.filters import gaussian_psf
+from cnmf_e.utils.metrics import detection_f1, trace_corr
+from cnmf_e.utils.simulate import simulate_movie
 
 
 # --------------------------------------------------------------------- #
@@ -265,7 +265,7 @@ def greedy_init_oracle(Y, gSig, gSiz, min_corr, min_pnr, K, sig=3.0):
 @pytest.mark.slow
 def test_batched_init_matches_serial_reference_oracle():
     """On a movie where the serial reference semantics find all planted
-    neurons, the batched TPU init must find the same set (F1), with
+    neurons, the batched init must find the same set (F1), with
     overlapping footprints (IoU) and matching traces."""
     gt = simulate_movie(seed=11, H=48, W=48, T=300, K=6, gSig=2.5,
                         sn=0.06, bg_strength=0.4, min_dist=13.0,
@@ -284,13 +284,13 @@ def test_batched_init_matches_serial_reference_oracle():
                         deconv_at_init=False))
     state, _ = initialize_greedy(jnp.asarray(gt.Y), params)
     n = int(state.n_active())
-    A_tpu = np.asarray(state.masked_A())[:n]
-    C_tpu = np.asarray(state.C_raw)[:n]
+    A_est = np.asarray(state.masked_A())[:n]
+    C_est = np.asarray(state.C_raw)[:n]
 
     # same neuron set as the serial oracle
-    f1 = detection_f1(A_tpu, A_ora, iou_thr=0.3)
+    f1 = detection_f1(A_est, A_ora, iou_thr=0.3)
     assert f1["f1"] >= 0.85, f1
     matched_iou = [f1["iou"][i, j] for i, j in f1["matches"]]
     assert np.mean(matched_iou) >= 0.55, matched_iou
-    corrs = trace_corr(C_tpu, C_ora, f1["matches"])
+    corrs = trace_corr(C_est, C_ora, f1["matches"])
     assert np.median(corrs) > 0.95, corrs

@@ -4,16 +4,17 @@ ORACLE (test-only, deliberately slow): a literal float64 numpy
 transliteration of the reference's per-pixel loop in
 ``endoscope/fit_ring_model.m:92-126`` (ring neighborhood from
 ``get_nhood.m:1-26``, no-projection branch), asserted near-exactly against
-the batched TPU redesign ``ops/ring.py::fit_ring_weights`` /
+the batched redesign ``ops/ring.py::fit_ring_weights`` /
 ``fit_ring_model``. This pins the redesign to reference SEMANTICS, not just
 to synthetic-ground-truth plausibility (VERDICT r2 missing #1).
 """
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from cnmf_e_tpu.ops.ring import (RingWeights, apply_ring, fit_ring_model,
-                                 fit_ring_weights, ring_offsets)
+from cnmf_e.ops.ring import (RingWeights, apply_ring, fit_ring_model,
+                             fit_ring_weights, ring_offsets)
 
 
 def _nhood_offsets_oracle(radius):
@@ -80,9 +81,9 @@ def test_fit_ring_weights_matches_reference_oracle(rng):
 
     W_ora, w0_ora = fit_ring_oracle(Bf, radius)
     w = fit_ring_weights(jnp.asarray(Bf), H, W_, radius, ridge_eps=1e-5)
-    W_tpu = _dense_from_ringweights(w, H, W_, radius)
+    W_jax = _dense_from_ringweights(w, H, W_, radius)
 
-    np.testing.assert_allclose(W_tpu, W_ora, atol=2e-4)
+    np.testing.assert_allclose(W_jax, W_ora, atol=2e-4)
     np.testing.assert_allclose(np.asarray(w.w0), w0_ora, atol=2e-4)
 
 
@@ -139,8 +140,8 @@ def test_fit_ring_model_b0_outlier_clamp_match_oracle(rng):
     W_ora, w0_ora = fit_ring_oracle(
         np.moveaxis(Bf_clamped.reshape(H, W_, T), -1, 0).astype(np.float32),
         radius)
-    W_tpu = _dense_from_ringweights(weights, H, W_, radius)
-    np.testing.assert_allclose(W_tpu, W_ora, atol=5e-4)
+    W_jax = _dense_from_ringweights(weights, H, W_, radius)
+    np.testing.assert_allclose(W_jax, W_ora, atol=5e-4)
 
 
 def test_apply_ring_matches_oracle_dense_product(rng):
@@ -168,3 +169,36 @@ def test_apply_ring_matches_oracle_dense_product(rng):
         + np.asarray(w.w0).reshape(H, W_)
     out = apply_ring(w, jnp.asarray(X), H, W_, radius)
     np.testing.assert_allclose(np.asarray(out), ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("radius,H,W_", [(1, 7, 5), (2, 9, 13),
+                                         (3, 11, 8), (4, 13, 17)])
+def test_apply_ring_matches_float64_oracle_ragged(radius, H, W_):
+    """apply_ring (the one ring-apply path) against the float64 dense
+    ring operator built by the reference's own neighborhood rule
+    (get_nhood.m), on odd and ragged fields of view where many ring
+    taps fall outside the frame."""
+    rng = np.random.default_rng(radius * 100 + H)
+    T = 6
+    d = H * W_
+    dys, dxs = _nhood_offsets_oracle(radius)
+    X = rng.standard_normal((T, H, W_))
+    Wd = np.zeros((d, d))
+    for m in range(d):
+        y, x = divmod(m, W_)
+        ny, nx = y + dys, x + dxs
+        ok = (ny >= 0) & (ny < H) & (nx >= 0) & (nx < W_)
+        Wd[m, ny[ok] * W_ + nx[ok]] = rng.standard_normal(ok.sum()) * 0.3
+    w0 = rng.standard_normal(d)
+    ref = (Wd @ X.reshape(T, d).T).T.reshape(T, H, W_) + w0.reshape(H, W_)
+    # pack the dense operator into the (d, R) per-offset layout
+    offsets = ring_offsets(radius)
+    wv = np.zeros((d, offsets.shape[0]), np.float32)
+    for m in range(d):
+        y, x = divmod(m, W_)
+        for r, (dy, dx) in enumerate(offsets):
+            if 0 <= y + dy < H and 0 <= x + dx < W_:
+                wv[m, r] = Wd[m, (y + dy) * W_ + x + dx]
+    w = RingWeights(w=jnp.asarray(wv), w0=jnp.asarray(w0, jnp.float32))
+    out = apply_ring(w, jnp.asarray(X, jnp.float32), H, W_, radius)
+    np.testing.assert_allclose(np.asarray(out), ref, rtol=1e-5, atol=1e-5)

@@ -1,12 +1,13 @@
-"""Fused Pallas HALS sweeps (interpret mode) vs the XLA blocked path and
-the float64 Gauss-Seidel oracle (HALS_spatial.m:26-46 semantics)."""
+"""Fused Pallas HALS sweeps (Triton route, interpret mode) vs the XLA
+blocked path and the float64 Gauss-Seidel oracle (HALS_spatial.m:26-46
+semantics)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cnmf_e_tpu.ops.hals import hals_spatial_sweeps, hals_temporal_sweeps
-from cnmf_e_tpu.ops.pallas_hals import hals_sweeps_rows_pallas
+from cnmf_e.ops.hals import hals_spatial_sweeps, hals_temporal_sweeps
+from cnmf_e.ops.pallas_hals import hals_sweeps_rows_pallas
 
 
 def _problem(seed=0, d=400, K=24, T=150):
@@ -135,15 +136,14 @@ def _clustered_problem(seed=3, d=600, K=40, T=120, n_classes=3):
 
 
 def test_class_schedule_kernel_matches_sequential():
-    """The class-aligned step schedule (M = block vectorized steps with
-    dynamic sublane starts + positional end-gating) must be bitwise-
-    equal to the sequential sweep in colored order — the round-5
-    sweep-latency lever's exactness bar."""
-    from cnmf_e_tpu.ops.coloring import class_step_schedule
+    """The class-aligned step schedule (block-row vectorized steps with
+    dynamic row starts + positional end-gating) must equal the
+    sequential sweep in colored order."""
+    from cnmf_e.ops.coloring import class_step_schedule
 
     U, V, X, colors = _clustered_problem()
     K = X.shape[0]
-    for B in (8, 16, 64):
+    for B in (16, 32, 64):
         sched = class_step_schedule(jnp.asarray(colors), block=B)
         out_sched = hals_sweeps_rows_pallas(
             jnp.asarray(U), jnp.asarray(V), jnp.asarray(X),
@@ -166,7 +166,7 @@ def test_class_schedule_kernel_matches_sequential():
 def test_class_schedule_respects_gauss_seidel_order_across_classes():
     """Coupled rows (different classes) must still see each other's
     updates in order — pinned against the float64 sequential oracle."""
-    from cnmf_e_tpu.ops.coloring import class_step_schedule
+    from cnmf_e.ops.coloring import class_step_schedule
 
     U, V, X, colors = _clustered_problem(seed=9, n_classes=4)
     K = X.shape[0]
@@ -185,7 +185,7 @@ def test_class_schedule_spatial_masked_matches_sequential():
     update to its own pixels, so the vectorized class step is exact even
     though the trace Gram is dense (determine_search_location.m +
     update_order.m semantics)."""
-    from cnmf_e_tpu.ops.coloring import class_step_schedule
+    from cnmf_e.ops.coloring import class_step_schedule
 
     rng = np.random.default_rng(11)
     d, K, n_classes = 512, 30, 3
@@ -223,40 +223,49 @@ def test_class_schedule_spatial_masked_matches_sequential():
 def test_schedule_overflow_falls_back_to_blocks():
     """More classes than schedule capacity: the fallback block grid with
     sequential (non-free) steps still produces the exact result."""
-    from cnmf_e_tpu.ops.coloring import class_step_schedule
+    from cnmf_e.ops.coloring import class_step_schedule
 
     U, V, X, colors = _clustered_problem(seed=5, K=24, n_classes=3)
     K = X.shape[0]
     # force overflow with a tiny capacity (clamped to the block count)
-    sched = class_step_schedule(jnp.asarray(colors), block=8, n_cap=2)
-    assert sched[0].shape[0] == -(-K // 8)    # capacity clamped
-    assert int(sched[3]) == -(-K // 8)        # fallback block count
+    sched = class_step_schedule(jnp.asarray(colors), block=16, n_cap=1)
+    assert sched[0].shape[0] == -(-K // 16)   # capacity clamped
+    assert int(sched[3]) == -(-K // 16)       # fallback block count
     out = hals_sweeps_rows_pallas(
         jnp.asarray(U), jnp.asarray(V), jnp.asarray(X),
-        gate=jnp.ones(K, jnp.float32), n_iter=2, block=8, relu=False,
+        gate=jnp.ones(K, jnp.float32), n_iter=2, block=16, relu=False,
         schedule=sched, interpret=True)
     out_ref = hals_sweeps_rows_pallas(
         jnp.asarray(U), jnp.asarray(V), jnp.asarray(X),
-        gate=jnp.ones(K, jnp.float32), n_iter=2, block=8, relu=False,
+        gate=jnp.ones(K, jnp.float32), n_iter=2, block=16, relu=False,
         interpret=True)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(out_ref))
 
 
-def test_hi_lo_dots_close_to_exact():
-    """The 3-pass bf16 hi/lo split dots track the HIGHEST-precision
-    result to ~1e-5 relative on a multi-sweep solve (single-pass bf16
-    drifts orders of magnitude more — the r4 fast_dots rejection)."""
-    U, V, A, C, Y = _problem(seed=2)
-    K = A.shape[1]
-    out_hi = hals_sweeps_rows_pallas(
+@pytest.mark.parametrize("tile", [16, 32, 128])
+def test_pallas_tile_width_invariant(tile):
+    """Programs own disjoint column tiles, so the tile width (and the
+    column padding it implies) cannot change the result."""
+    U, V, A, _, _ = _problem(seed=6, d=300, K=20)
+    ref_xla = np.asarray(hals_spatial_sweeps(
+        jnp.asarray(U), jnp.asarray(V), jnp.asarray(A), n_iter=2,
+        use_pallas=False))
+    got = np.asarray(hals_sweeps_rows_pallas(
         jnp.asarray(U.T), jnp.asarray(V), jnp.asarray(A.T),
-        gate=jnp.ones(K, jnp.float32), n_iter=5, relu=True,
-        dots="highest", interpret=True)
-    out_hl = hals_sweeps_rows_pallas(
+        gate=jnp.ones(20), n_iter=2, relu=True, tile=tile,
+        interpret=True)).T
+    np.testing.assert_allclose(got, ref_xla, rtol=2e-5, atol=2e-5)
+
+
+def test_pallas_large_k_chunks_the_residual_dot():
+    """K past one 128-row dot chunk (K = 150 pads to 256, two chunks)
+    still tracks the XLA path."""
+    U, V, A, _, _ = _problem(seed=7, d=64, K=150, T=200)
+    ref_xla = np.asarray(hals_spatial_sweeps(
+        jnp.asarray(U), jnp.asarray(V), jnp.asarray(A), n_iter=1,
+        use_pallas=False))
+    got = np.asarray(hals_sweeps_rows_pallas(
         jnp.asarray(U.T), jnp.asarray(V), jnp.asarray(A.T),
-        gate=jnp.ones(K, jnp.float32), n_iter=5, relu=True,
-        dots="hi_lo", interpret=True)
-    scale = max(float(np.abs(np.asarray(out_hi)).max()), 1e-9)
-    rel = float(np.abs(np.asarray(out_hl) - np.asarray(out_hi)).max()) \
-        / scale
-    assert rel < 5e-5, rel
+        gate=jnp.ones(150), n_iter=1, relu=True, tile=16,
+        interpret=True)).T
+    np.testing.assert_allclose(got, ref_xla, rtol=1e-4, atol=1e-4)

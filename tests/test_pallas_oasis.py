@@ -1,9 +1,10 @@
 """Pallas OASIS event-loop kernel vs the exact sample-level solver.
 
-The kernel (ops/pallas_oasis.py) runs the whole pool-merge loop inside one
-TPU program; in interpret mode it executes the identical lockstep algorithm
-on CPU, so these tests pin it against the vmapped sample-level while_loop
-(the ground-truth formulation of ``oasisAR1.m:59-109``).
+The kernel (ops/pallas_oasis.py, Triton route) runs the whole pool-merge
+loop inside one GPU program; in interpret mode it executes the identical
+lockstep algorithm on CPU, so these tests pin it against the vmapped
+sample-level while_loop (the ground-truth formulation of
+``oasisAR1.m:59-109``).
 """
 
 import jax
@@ -11,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cnmf_e_tpu.ops.oasis import _oasis_ar1_single
-from cnmf_e_tpu.ops.pallas_oasis import oasis_ar1_pallas
+from cnmf_e.ops.oasis import _oasis_ar1_single
+from cnmf_e.ops.pallas_oasis import oasis_ar1_pallas
 
 
 def _ar1_traces(K, T, seed, rate=0.05, sn=0.2):
@@ -62,42 +63,28 @@ def test_pallas_oasis_decreasing_merges_to_one_pool():
     assert float(jnp.sum(s_pl[:, 1:])) < 1e-5
 
 
-class TestDivideAndConquer:
-    """oasis_ar1_pallas_dc: chunked pass 1 + pool-merge pass 2."""
+class TestLongTraces:
+    """Traces long enough for deep pool stacks and long merge cascades."""
 
     @pytest.mark.parametrize("lam,smin", [(0.0, 0.0), (0.5, 0.0),
                                           (0.0, 0.3), (0.3, 0.2)])
-    def test_matches_dc_oracle(self, lam, smin):
-        """smin == 0: pool merging is confluent, so DC == sample-sequential.
-        smin > 0: merge ORDER matters (thresholded rule), and the
-        established oracle is the XLA divide-and-conquer path (the CPU
-        default for long traces) — the Pallas DC must match it exactly."""
-        import functools
-        from cnmf_e_tpu.ops.oasis import _oasis_ar1_dc_single
-        from cnmf_e_tpu.ops.pallas_oasis import oasis_ar1_pallas_dc
-        K, T = 5, 300      # several chunks of L=64, with T % L != 0
-        y, g = _ar1_traces(K, T, seed=hash(("dc", lam, smin)) % 2**31)
+    def test_matches_sample_level(self, lam, smin):
+        """The kernel is the sample-level algorithm for every lam/smin —
+        including smin > 0, where merge order matters and the XLA
+        divide-and-conquer path differs."""
+        K, T = 5, 300
+        y, g = _ar1_traces(K, T, seed=hash(("long", lam, smin)) % 2**31)
         lam_v = jnp.full((K,), lam, jnp.float32)
         smin_v = jnp.full((K,), smin, jnp.float32)
-        if smin == 0.0:
-            c_ref, s_ref = jax.vmap(_oasis_ar1_single)(y, g, lam_v, smin_v)
-        else:
-            Tpad = 320
-            big = jnp.max(jnp.abs(y)) * 2 + 1e6
-            yf = jnp.concatenate(
-                [y, jnp.full((K, Tpad - T), big, jnp.float32)], axis=1)
-            c_ref, s_ref = jax.vmap(functools.partial(
-                _oasis_ar1_dc_single, L=64, T_real=T))(yf, g, lam_v, smin_v)
-            c_ref, s_ref = c_ref[:, :T], s_ref[:, :T]
-        c_pl, s_pl = oasis_ar1_pallas_dc(y, g, lam_v, smin_v, L=64,
-                                         interpret=True)
+        c_ref, s_ref = jax.vmap(_oasis_ar1_single)(y, g, lam_v, smin_v)
+        c_pl, s_pl = oasis_ar1_pallas(y, g, lam_v, smin_v, lanes=4,
+                                      interpret=True)
         np.testing.assert_allclose(c_pl, c_ref, atol=1e-4)
         np.testing.assert_allclose(s_pl, s_ref, atol=1e-4)
 
-    def test_cross_chunk_cascade(self):
-        # big pool at a chunk end followed by sub-decay samples: every
-        # boundary merge triggers the next (worst-case cascade)
-        from cnmf_e_tpu.ops.pallas_oasis import oasis_ar1_pallas_dc
+    def test_merge_cascade(self):
+        # a big pool followed by sub-decay samples: every push merges and
+        # triggers the next merge (worst-case cascade)
         T = 256
         t = np.arange(T, dtype=np.float32)
         y = np.where(t < 60, 10.0, 10.0 * 0.5 ** (t - 59)).astype(np.float32)
@@ -105,16 +92,41 @@ class TestDivideAndConquer:
         g = jnp.asarray([0.95], jnp.float32)
         z = jnp.zeros((1,), jnp.float32)
         c_ref, _ = jax.vmap(_oasis_ar1_single)(y, g, z, z)
-        c_pl, _ = oasis_ar1_pallas_dc(y, g, z, z, L=64, interpret=True)
+        c_pl, _ = oasis_ar1_pallas(y, g, z, z, interpret=True)
         np.testing.assert_allclose(c_pl, c_ref, atol=1e-4)
 
     def test_monotone_increasing_max_pools(self):
-        # no merging anywhere: pass 2 pushes the maximum pool count
-        from cnmf_e_tpu.ops.pallas_oasis import oasis_ar1_pallas_dc
+        # no merging anywhere: the stack reaches its full depth T
         T = 200
         y = jnp.asarray(np.linspace(1.0, 10.0, T, dtype=np.float32))[None, :]
         g = jnp.asarray([0.9], jnp.float32)
         z = jnp.zeros((1,), jnp.float32)
         c_ref, _ = jax.vmap(_oasis_ar1_single)(y, g, z, z)
-        c_pl, _ = oasis_ar1_pallas_dc(y, g, z, z, L=64, interpret=True)
+        c_pl, _ = oasis_ar1_pallas(y, g, z, z, interpret=True)
         np.testing.assert_allclose(c_pl, c_ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 8, 32])
+def test_lane_width_invariant(lanes):
+    """Traces are independent: how many share a program (and the padding
+    to a lane multiple) cannot change any trace's result."""
+    K, T = 9, 80
+    y, g = _ar1_traces(K, T, seed=17)
+    z = jnp.zeros((K,), jnp.float32)
+    sm = jnp.full((K,), 0.1, jnp.float32)
+    c_ref, s_ref = jax.vmap(_oasis_ar1_single)(y, g, z, sm)
+    c_pl, s_pl = oasis_ar1_pallas(y, g, z, sm, lanes=lanes, interpret=True)
+    np.testing.assert_allclose(c_pl, c_ref, atol=1e-4)
+    np.testing.assert_allclose(s_pl, s_ref, atol=1e-4)
+
+
+def test_kernel_agrees_with_xla_form_when_merging_is_confluent():
+    """With smin = 0 pool merging is confluent, so the kernel agrees with
+    the XLA divide-and-conquer form the CPU runs."""
+    from cnmf_e.ops.oasis import oasis_ar1
+    K, T = 6, 150
+    y, g = _ar1_traces(K, T, seed=23)
+    c_x, _ = oasis_ar1(y, g, 0.1, 0.0, impl="xla")
+    c_pl, _ = oasis_ar1_pallas(y, g, jnp.full((K,), 0.1), jnp.zeros(K),
+                               interpret=True)
+    np.testing.assert_allclose(c_pl, c_x, atol=1e-4)
