@@ -85,8 +85,8 @@ def bench_hals(H=256, W=256, T=2000, K=192, radius=13, n_iter=10):
         ``update_temporal_parallel.m:282-287``)
       * ``deconv_every_10`` — single deconvolution per 10-chain
     """
-    from cnmf_e.parallel.step import make_update_step
-    from cnmf_e.utils.simulate import update_step_problem
+    from cnmf_e_tpu.parallel.step import make_update_step
+    from cnmf_e_tpu.utils.simulate import update_step_problem
 
     Y, st = update_step_problem(H, W, T, K, radius)
 
@@ -158,10 +158,10 @@ def bench_pipeline(H=256, W=256, T=2000, K_true=120):
     timing printed to stderr."""
     import dataclasses
     import jax.numpy as jnp
-    from cnmf_e.config import CNMFEParams
-    from cnmf_e.models.pipeline import CNMFE
-    from cnmf_e.utils.profiling import StageTimer
-    from cnmf_e.utils.simulate import simulate_movie
+    from cnmf_e_tpu.config import CNMFEParams
+    from cnmf_e_tpu.models.pipeline import CNMFE
+    from cnmf_e_tpu.utils.profiling import StageTimer
+    from cnmf_e_tpu.utils.simulate import simulate_movie
 
     gt = simulate_movie(seed=7, H=H, W=W, T=T, K=K_true, gSig=3.0,
                         sn=0.1, bg_strength=1.0, min_dist=9.0,
@@ -201,7 +201,7 @@ def bench_pipeline(H=256, W=256, T=2000, K_true=120):
 
 
 def main():
-    from cnmf_e.utils.cache import enable_compilation_cache
+    from cnmf_e_tpu.utils.cache import enable_compilation_cache
     enable_compilation_cache()
 
     variants, roofline = bench_hals()

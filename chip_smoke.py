@@ -15,13 +15,15 @@ Phases (any failure raises and exits non-zero):
 2. The chained update step (``make_update_step``, chain 10, deconvolution
    every 5th, colored) at 256x256x2000, K = 192, against the same chain
    with every dot at HIGHEST: the chain-drift gate, max-rel <= 1e-3.
-3. End to end through the CLI (``cnmf_e.run.main``) on a simulated 1p
+3. End to end through the CLI (``cnmf_e_tpu.run.main``) on a simulated 1p
    movie of 256x256x6000 frames with 150 planted neurons, scored against
    the planted truth (recall >= 0.8, precision >= 0.6, median trace
    correlation > 0.9). Prints cold and warm wall seconds.
-4. ``--multi``: one colored update-step iteration on (patch, frame) =
+4. ``--multi``: the chained update step of phase 2 on (patch, frame) =
    (4, 1) and (2, 2) meshes, the pipeline stages on sharded input and one
-   streamed mesh iteration, each against a one-device run.
+   streamed mesh iteration, each against the single-card result: the
+   same neurons, and A, C_raw and C within max-rel 1e-3. The step is
+   gated on planted neurons; the noise-only bench problem is printed.
 
 The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -90,7 +92,7 @@ def phase0():
     say(smi)
     say(f"jax {jax.__version__}; devices: {len(jax.devices())} x "
         f"{dev.device_kind}")
-    from cnmf_e.utils.cache import enable_compilation_cache
+    from cnmf_e_tpu.utils.cache import enable_compilation_cache
     say(f"compile cache: {enable_compilation_cache()}")
     return dev
 
@@ -126,8 +128,8 @@ def hals_problem(K, H=None, W=None, T=None, seed=0):
 
 def phase1_hals(kept):
     import jax
-    from cnmf_e.ops.hals import hals_spatial_sweeps_rows, hals_temporal_sweeps
-    from cnmf_e.ops.kernels import choose
+    from cnmf_e_tpu.ops.hals import hals_spatial_sweeps_rows, hals_temporal_sweeps
+    from cnmf_e_tpu.ops.kernels import choose
     impl = choose("hals")
     say(f"[hals] implementation: {impl}; reference: XLA blocked "
         f"Gauss-Seidel; both sides HIGHEST-precision dots")
@@ -169,8 +171,8 @@ def phase1_oasis(kept):
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from cnmf_e.ops.kernels import choose
-    from cnmf_e.ops.oasis import oasis_ar1
+    from cnmf_e_tpu.ops.kernels import choose
+    from cnmf_e_tpu.ops.oasis import oasis_ar1
     impl = choose("oasis")
     kept["oasis"] = impl
     say(f"[oasis] implementation: {impl}; reference: sample-level "
@@ -190,23 +192,26 @@ def phase1_oasis(kept):
                 y, g, z, sm, impl="xla"))
             tk, (c, s) = timed(run, y, g, z, sm)
             tr, (cr, sr) = timed(ref_fn, y, g, z, sm, reps=1)
-            tx, _ = timed(xla_fn, y, g, z, sm, reps=1)
+            tx, (cx, _) = timed(xla_fn, y, g, z, sm, reps=1)
             ymax = float(jnp.abs(y).max())
             err = float(jnp.abs(c - cr).max()) / ymax
+            errx = float(jnp.abs(cx - cr).max()) / ymax
             cc = corr(c, cr)
             say(f"[oasis] K={K} T={T} smin={smin}: {impl} "
-                f"{tk * 1e3:.3f} ms, xla divide-and-conquer "
-                f"{tx * 1e3:.3f} ms, sample-level xla {tr * 1e3:.3f} ms; "
-                f"max|dc|/max|y| {err:.2e}, corr {cc:.7f}")
-            check(err <= 1e-4 and cc > 0.999,
-                  f"oasis T={T} smin={smin} err {err:.2e} <= 1e-4, "
-                  f"corr > 0.999")
+                f"{tk * 1e3:.3f} ms, xla form "
+                f"({'divide-and-conquer' if smin == 0 else 'sample-level'})"
+                f" {tx * 1e3:.3f} ms, sample-level xla {tr * 1e3:.3f} ms; "
+                f"max|dc|/max|y| kernel {err:.2e}, xla form {errx:.2e}; "
+                f"kernel corr {cc:.7f}")
+            check(max(err, errx) <= 1e-4 and cc > 0.999,
+                  f"oasis T={T} smin={smin} kernel and xla form err "
+                  f"{max(err, errx):.2e} <= 1e-4, corr > 0.999")
 
 
 def ring_reference(w, w0, X, radius):
     """Float64 numpy ring apply: sum over taps of w[:, r] * shift_r(X)."""
     import numpy as np
-    from cnmf_e.ops.ring import ring_offsets
+    from cnmf_e_tpu.ops.ring import ring_offsets
     T, H, W = X.shape
     out = np.broadcast_to(w0.reshape(1, H, W), X.shape).copy()
     for r, (dy, dx) in enumerate(ring_offsets(radius)):
@@ -224,8 +229,8 @@ def phase1_ring_filter():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from cnmf_e.ops import filters
-    from cnmf_e.ops.ring import RingWeights, apply_ring, ring_offsets
+    from cnmf_e_tpu.ops import filters
+    from cnmf_e_tpu.ops.ring import RingWeights, apply_ring, ring_offsets
     H, W, T = S["H"], S["W"], S["T"]
     rng = np.random.default_rng(2)
     X = jnp.asarray(rng.standard_normal((T, H, W)), jnp.float32)
@@ -249,17 +254,22 @@ def phase1_ring_filter():
             f"float64 shift-sum on 8 frames and the HIGHEST run")
         check(err <= 1e-5, f"ring radius={radius} max-rel {err:.2e} "
               f"<= 1e-5")
+    from scipy import ndimage
     psf = filters.gaussian_psf(3.0, center_psf=True, size=13)
     run = jax.jit(lambda Y: filters.filter_movie(Y, psf))
     t, got = timed(run, X)
     with jax.default_matmul_precision("highest"):
-        tr, ref = timed(jax.jit(lambda Y: filters.filter_movie_conv(Y, psf)),
-                        X, reps=1)
-    err = maxrel(got, ref)
-    say(f"[filter] filter_movie gSig=3 gSiz=13 {H}x{W}x{T}: "
-        f"{t * 1e3:.3f} ms; conv reference at HIGHEST {tr * 1e3:.3f} ms; "
-        f"max-rel {err:.2e}")
-    check(err <= 1e-3, f"filter max-rel {err:.2e} <= 1e-3")
+        tr, got_hi = timed(jax.jit(lambda Y: filters.filter_movie(Y, psf)),
+                           X, reps=1)
+    ref = np.stack([ndimage.convolve(f, psf.astype(np.float64),
+                                     mode="nearest")
+                    for f in np.asarray(X[:8], np.float64)])
+    err = max(maxrel(got[:8], ref), maxrel(got, got_hi))
+    say(f"[filter] filter_movie (xla conv) gSig=3 gSiz=13 {H}x{W}x{T}: "
+        f"{t * 1e3:.3f} ms (default precision), {tr * 1e3:.3f} ms "
+        f"(HIGHEST); max-rel {err:.2e} against a float64 convolution on "
+        f"8 frames and the HIGHEST run")
+    check(err <= 1e-5, f"filter max-rel {err:.2e} <= 1e-5")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -268,7 +278,7 @@ def phase1_ring_filter():
 def phase2():
     sys.path.insert(0, os.path.join(HERE, "scripts_dev"))
     from chain_drift import GATE, drift, run_chain
-    from cnmf_e.utils.simulate import update_step_problem
+    from cnmf_e_tpu.utils.simulate import update_step_problem
     H, W, T = S["H"], S["W"], S["T"]
     Y, st = update_step_problem(H, W, T, K=S["K"], radius=13)
     t0 = time.perf_counter()
@@ -291,10 +301,10 @@ def phase2():
 
 def phase3():
     import numpy as np
-    from cnmf_e.io.tiff import write_tiff
-    from cnmf_e.run import main as cli
-    from cnmf_e.utils.metrics import detection_f1, trace_corr
-    from cnmf_e.utils.simulate import simulate_movie
+    from cnmf_e_tpu.io.tiff import write_tiff
+    from cnmf_e_tpu.run import main as cli
+    from cnmf_e_tpu.utils.metrics import detection_f1, trace_corr
+    from cnmf_e_tpu.utils.simulate import simulate_movie
 
     H, W, T = S["H"], S["W"], S["T_cli"]
     t0 = time.perf_counter()
@@ -338,7 +348,7 @@ def phase3():
 
 
 def phase4():
-    """Meshes over every visible GPU against single-device results."""
+    """Meshes over every visible GPU against the single-card results."""
     import dataclasses
 
     import jax
@@ -346,9 +356,9 @@ def phase4():
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from cnmf_e.parallel.mesh import make_mesh
-    from cnmf_e.parallel.step import make_update_step
-    from cnmf_e.utils.simulate import update_step_problem
+    from cnmf_e_tpu.parallel.mesh import make_mesh
+    from cnmf_e_tpu.parallel.step import make_update_step
+    from cnmf_e_tpu.utils.simulate import update_step_problem
 
     n = len(jax.devices())
     check(n == 4, f"{n} devices visible (need 4)")
@@ -356,7 +366,6 @@ def phase4():
     from chain_drift import GATE, drift
 
     H, W, T, K = S["H"], S["W"], S["T"], S["K"]
-    Y, st = update_step_problem(H, W, T, K=K, radius=13)
     failed = []
 
     def gate(ok, msg):
@@ -364,63 +373,85 @@ def phase4():
         if not ok:
             failed.append(msg)
 
-    # the single-device reference is a one-device mesh: it runs the same
-    # XLA forms as every mesh (the kernels do not partition, and OASIS's
-    # XLA form merges pools in another order when smin > 0), so the
-    # comparison isolates the partitioning
-    one = make_mesh(n_patch=1, n_frame=1)
+    def compare(what, out, ref, fields=("A", "C_raw", "C")):
+        """Print the floored max-rel of each field and the spike-support
+        flips; return the worst max-rel."""
+        errs = {f: drift(getattr(out, f), getattr(ref, f))[0]
+                for f in fields}
+        flips = int(np.sum((np.asarray(out.S) > 0)
+                           != (np.asarray(ref.S) > 0)))
+        say(f"[multi] {what}: " + ", ".join(
+            f"{f} max-rel {e:.2e}" for f, e in errs.items())
+            + f"; spike flips {flips} of {int(np.sum(np.asarray(ref.S) > 0))}")
+        return max(errs.values())
+
+    # the chained update step, as chip phase 2 runs it; the single card
+    # runs the kernels, every mesh the XLA forms (a one-device mesh runs
+    # them on the single card)
+    kw = dict(radius=13, n_hals=1, chain=10, deconv_every=5, colored=True)
     specs = dict(A=P(None, "patch", None), C=P(None, "frame"),
                  C_raw=P(None, "frame"), S=P(None, "frame"), g=P(),
                  b0=P("patch", None), ring_w=P("patch", None),
                  ring_w0=P("patch"))
+    meshes = {(p, f): make_mesh(n_patch=p, n_frame=f)
+              for p, f in ((1, 1), (4, 1), (2, 2))}
+    steps = {None: make_update_step(None, H, W, T, **kw)}
+    steps.update({m: make_update_step(mesh, H, W, T, **kw)
+                  for m, mesh in meshes.items()})
 
-    def run_step(mesh, **kw):
-        put = lambda x, spec: jax.device_put(x, NamedSharding(mesh, spec))
-        Ys = put(Y, P("frame", "patch", None))
-        sts = st._replace(**{f: put(getattr(st, f), s)
-                             for f, s in specs.items()})
-        step = make_update_step(mesh, H, W, T, radius=13, n_hals=1, **kw)
+    def run_step(m, Y, st):
+        if m is not None:
+            put = lambda x, spec: jax.device_put(
+                x, NamedSharding(meshes[m], spec))
+            Y = put(Y, P("frame", "patch", None))
+            st = st._replace(**{f: put(getattr(st, f), s)
+                                for f, s in specs.items()})
         t0 = time.perf_counter()
-        out = jax.block_until_ready(step(Ys, sts))
+        out = jax.block_until_ready(steps[m](Y, st))
         tc = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out = jax.block_until_ready(step(Ys, sts))
+        out = jax.block_until_ready(steps[m](Y, st))
         return out, tc, time.perf_counter() - t0
 
-    # one colored iteration (projection, masked sweeps, deconvolution
-    # with its reshard): a chain of 10 would mostly measure how far the
-    # iteration amplifies reassociation differences (uncolored chains
-    # already drift 5e-2 between one and four virtual CPU devices)
-    kw = dict(chain=1, colored=True)
-    ref, tc, _ = run_step(one, **kw)
-    say(f"[multi] one-device mesh: {tc:.2f} s (incl. compile)")
-    for n_patch, n_frame in ((4, 1), (2, 2)):
-        mesh = make_mesh(n_patch=n_patch, n_frame=n_frame)
-        out, tc, tw = run_step(mesh, **kw)
-        am, _ = drift(out.A, ref.A)
-        rm, _ = drift(out.C_raw, ref.C_raw)
-        cc = corr(out.C, ref.C)
-        say(f"[multi] update step mesh (patch={n_patch}, frame={n_frame}): "
-            f"cold {tc:.2f} s, warm {tw * 1e3:.2f} ms; vs one device "
-            f"A max-rel {am:.2e}, C_raw max-rel {rm:.2e}, deconvolved C "
-            f"corr {cc:.6f} (max-rel {drift(out.C, ref.C)[0]:.2e})")
-        # OASIS thresholds spikes at 3 sn: a last-bit difference can flip
-        # one spike, so C is held to phase 1's OASIS bar (corr > 0.999)
-        gate(am <= GATE and rm <= GATE and cc > 0.999,
-             f"mesh ({n_patch},{n_frame}) matches one device: A, C_raw "
-             f"<= {GATE:.0e}, C corr > 0.999")
+    # planted neurons (a fitted recording's refinement) are held to the
+    # single card's kernels. The noise-only bench problem is printed, not
+    # gated: it fits noise and puts OASIS's threshold inside it, so even
+    # two implementations on one card part there (spikes flip), and two
+    # partitionings of the same XLA forms reach ~1e-3 in A
+    for planted in (True, False):
+        Y, st = update_step_problem(H, W, T, K=K, radius=13, planted=planted)
+        name = "planted" if planted else "noise-only"
+        ref, tc, tw = run_step(None, Y, st)
+        ref_x, tcx, twx = run_step((1, 1), Y, st)
+        say(f"[multi] update step chain=10 deconv_every=5 colored K={K} "
+            f"{H}x{W}x{T} ({name}), single card: kernels cold {tc:.2f} s, "
+            f"warm {tw * 1e3:.2f} ms; XLA forms cold {tcx:.2f} s, warm "
+            f"{twx * 1e3:.2f} ms")
+        compare(f"single card, XLA forms vs kernels ({name})", ref_x, ref)
+        for m in ((4, 1), (2, 2)):
+            out, tc, tw = run_step(m, Y, st)
+            say(f"[multi] mesh (patch={m[0]}, frame={m[1]}) {name}: cold "
+                f"{tc:.2f} s, warm {tw * 1e3:.2f} ms")
+            ek = compare(f"mesh {m} {name} vs single card, kernels", out,
+                         ref)
+            compare(f"mesh {m} {name} vs single card, XLA forms", out,
+                         ref_x)
+            if planted:
+                gate(ek <= GATE, f"mesh {m} update step ({name}) matches "
+                     f"the single card: A, C_raw, C max-rel <= {GATE:.0e}")
+        del Y, st
 
     # pipeline stages and one streamed iteration on sharded input
-    from cnmf_e.config import CNMFEParams
-    from cnmf_e.io.store import distribute_movie
-    from cnmf_e.models.background import (subtract_background,
-                                          update_background)
-    from cnmf_e.models.initialize import initialize_greedy
-    from cnmf_e.models.spatial import update_spatial
-    from cnmf_e.models.streaming import fit_streaming
-    from cnmf_e.models.temporal import update_temporal
-    from cnmf_e.utils.metrics import detection_f1, trace_corr
-    from cnmf_e.utils.simulate import simulate_movie
+    from cnmf_e_tpu.config import CNMFEParams
+    from cnmf_e_tpu.io.store import distribute_movie
+    from cnmf_e_tpu.models.background import (subtract_background,
+                                              update_background)
+    from cnmf_e_tpu.models.initialize import initialize_greedy
+    from cnmf_e_tpu.models.spatial import update_spatial
+    from cnmf_e_tpu.models.streaming import fit_streaming
+    from cnmf_e_tpu.models.temporal import update_temporal
+    from cnmf_e_tpu.utils.metrics import detection_f1
+    from cnmf_e_tpu.utils.simulate import simulate_movie
 
     gt = simulate_movie(seed=7, H=H, W=W, T=T, K=S["K_multi"], gSig=3.0,
                         sn=0.1, bg_strength=1.0, min_dist=9.0,
@@ -428,7 +459,7 @@ def phase4():
     params = CNMFEParams.preset_1p()
     params = params.replace(init=dataclasses.replace(
         params.init, max_neurons=K, seeds_per_round=64, max_rounds=10))
-    mesh = make_mesh(n_patch=2, n_frame=2)
+    mesh = meshes[(2, 2)]
 
     def stages(Yin):
         state, _ = initialize_greedy(Yin, params)
@@ -437,18 +468,24 @@ def phase4():
         state = update_spatial(Ysig, state, params)
         return jax.block_until_ready(update_temporal(Ysig, state, params))
 
+    def compare_states(what, out, ref):
+        same = bool(np.array_equal(np.asarray(out.active),
+                                   np.asarray(ref.active)))
+        f1 = detection_f1(np.asarray(out.masked_A())[np.asarray(out.active)],
+                          np.asarray(ref.masked_A())[np.asarray(ref.active)])
+        say(f"[multi] {what}: {int(out.n_active())} neurons vs "
+            f"{int(ref.n_active())} on the single card, same slots {same}, "
+            f"F1 {f1['f1']:.3f}")
+        worst = compare(what, out, ref) if same else float("inf")
+        gate(same and worst <= GATE, f"{what} matches the single card: same "
+             f"neurons, A, C_raw, C max-rel <= {GATE:.0e}")
+
     Yj = jnp.asarray(gt.Y)
     s1 = stages(Yj)
     s4 = stages(jax.device_put(Yj, NamedSharding(
         mesh, P("frame", "patch", None))))
-    n1, n4 = int(s1.n_active()), int(s4.n_active())
-    f1 = detection_f1(np.asarray(s4.masked_A())[np.asarray(s4.active)],
-                      np.asarray(s1.masked_A())[np.asarray(s1.active)])
-    say(f"[multi] pipeline stages on a (2, 2) mesh: {n4} neurons vs {n1} "
-        f"on one device; F1 against the single-device footprints "
-        f"{f1['f1']:.3f}")
-    gate(f1["f1"] >= 0.9,
-         "sharded stages find the single-device neurons (F1 >= 0.9)")
+    compare_states("pipeline stages on a (2, 2) mesh", s4, s1)
+    del Yj, s1, s4
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -457,28 +494,14 @@ def phase4():
     store = distribute_movie(src, os.path.join(WORK, "store"),
                              frames_per_block=T // 4)
     res = {}
-    for name, m in (("single", one), ("mesh", mesh)):
+    for name, m in (("single card", None), ("(2, 2) mesh", mesh)):
         t0 = time.perf_counter()
         res[name] = jax.block_until_ready(fit_streaming(
             store, params, n_outer=1, init_budget_frames=T, mesh=m))
-        say(f"[multi] fit_streaming n_outer=1 {name}: "
-            f"{time.perf_counter() - t0:.2f} s (incl. compile), "
-            f"{int(res[name].n_active())} neurons")
-    # a streamed iteration runs init, QC and merges, whose thresholded
-    # decisions a last-bit difference can flip: score the mesh result
-    # against the one-device one as against planted truth (phase 3 bars)
-    a1, a4 = (np.asarray(r.masked_A())[np.asarray(r.active)]
-              for r in (res["single"], res["mesh"]))
-    c1, c4 = (np.asarray(r.C)[np.asarray(r.active)]
-              for r in (res["single"], res["mesh"]))
-    f1 = detection_f1(a4, a1)
-    med = float(np.median(trace_corr(c4, c1, f1["matches"])))
-    say(f"[multi] streamed iteration mesh vs one device: F1 "
-        f"{f1['f1']:.3f}, median trace corr {med:.5f}; A max-rel "
-        f"{drift(res['mesh'].A, res['single'].A)[0]:.2e}")
-    gate(f1["f1"] >= 0.9 and med > 0.99,
-         "streamed mesh iteration matches one device (F1 >= 0.9, median "
-         "trace corr > 0.99)")
+        say(f"[multi] fit_streaming n_outer=1 on the {name}: "
+            f"{time.perf_counter() - t0:.2f} s (incl. compile)")
+    compare_states("streamed iteration on a (2, 2) mesh",
+                   res["(2, 2) mesh"], res["single card"])
     shutil.rmtree(WORK, ignore_errors=True)
     check(not failed, f"every mesh check passed ({len(failed)} failed)")
 
@@ -488,9 +511,9 @@ def main(argv=None):
     ap.add_argument("--multi", action="store_true",
                     help="run only the four-GPU mesh phase")
     args = ap.parse_args(argv)
-    if not os.path.isdir(os.path.join(HERE, "cnmf_e")):
+    if not os.path.isdir(os.path.join(HERE, "cnmf_e_tpu")):
         raise SystemExit("FAIL: run chip_smoke.py from a checkout of the "
-                         "repository (package cnmf_e not found)")
+                         "repository (package cnmf_e_tpu not found)")
     sys.path.insert(0, HERE)
     dev = phase0()
     t0 = time.perf_counter()

@@ -1,4 +1,4 @@
-"""cnmf_e_tpu — TPU-native constrained NMF for micro-endoscopic calcium imaging.
+"""cnmf_e_tpu — Constrained NMF for micro-endoscopic calcium imaging.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of zhoupc/CNMF_E
 (MATLAB). The movie Y (pixels x frames) is factorized as

@@ -1,4 +1,4 @@
-"""Typed configuration for the CNMF-E TPU pipeline.
+"""Typed configuration for the CNMF-E pipeline.
 
 Replaces the flat ~90-parameter options struct of the reference
 (``ca_source_extraction/CNMFSetParms.m:9-309`` and the independent parser in
@@ -50,10 +50,9 @@ class DeconvParams:
     p_noise: float = 0.9999
     # noise estimation for traces
     sn_method: str = "psd"  # {"psd", "hist", "std"}
-    # divide-and-conquer OASIS time-chunk size; 0 = exact sequential event
-    # loop. The fast path is exact for smin == 0 (PAVA confluence) and can
-    # deviate at isolated samples for smin > 0 (trace corr vs exact stays
-    # > 0.999 in all measured regimes)
+    # divide-and-conquer OASIS time-chunk size of the XLA form; 0 = always
+    # the sequential event loop. The fast path runs only where smin == 0,
+    # where it is exact (PAVA confluence)
     fast_chunk: int = 128
 
 

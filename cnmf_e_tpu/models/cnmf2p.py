@@ -8,13 +8,13 @@ saturation detection, noise/AR estimates), ``initialize_components.m`` +
 constrained-foopsi), ``merge_components.m``. Driven by ``demo_script.m`` on
 ``demoMovie.tif`` (BASELINE config 1).
 
-TPU re-design notes:
+Batched re-design notes:
   * greedyROI peels in conflict-free seed rounds like the 1p initializer,
     with plain gaussian matched filtering and windowed rank-1 refinement
   * the per-pixel LARS lasso path becomes a batched nonneg-lasso solved by
     FISTA with a per-pixel lambda bisection targeting the noise budget
     ||y - Cw||^2 <= sn^2 T (same stopping criterion as
-    ``lars_regression_noise.m``, solved for all pixels at once on the MXU)
+    ``lars_regression_noise.m``, solved for all pixels at once as batched matmuls)
   * temporal update = HALS sweep + batched constrained-foopsi
 """
 

@@ -3,7 +3,7 @@
 Reference: ``update_spatial_parallel.m`` — per-patch parfor over pixels with
 HALS / thresholded-HALS / NNLS solvers on search-location-masked supports,
 then stitching and post-processing. Here: one masked solve over the full
-(sharded) FOV; the Grams are MXU matmuls and the per-neuron sweeps are
+(sharded) FOV; the Grams are dense matmuls and the per-neuron sweeps are
 ``fori`` loops inside a single jitted program.
 """
 
@@ -56,7 +56,7 @@ def update_spatial(Ysignal: jnp.ndarray, state: CNMFEState,
     Md = masks.reshape(K, H * W).T                  # (d, K)
 
     # colored=True: the reference's independent-set ordering
-    # (update_order.m:1-21) lets the fused TPU kernel update
+    # (update_order.m:1-21) lets the fused HALS kernel update
     # non-overlapping neurons simultaneously (tests/test_coloring.py)
     if sp.algorithm == "hals":
         Ad = hals_spatial(Yd, Ad, C, mask=Md, n_iter=sp.n_iter,

@@ -9,18 +9,24 @@ driver occasionally compacts slots host-side.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
-import flax.struct
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from cnmf_e_tpu.ops.ring import RingWeights
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class CNMFEState:
-    """Factorization state: Y ~= A C + B, B from ring or low-rank model."""
+    """Factorization state: Y ~= A C + B, B from ring or low-rank model.
+
+    A frozen dataclass registered as a pytree (every field is data), so it
+    passes through ``jit`` and ``tree_map``; ``replace`` returns a copy
+    with some fields swapped."""
 
     A: jnp.ndarray            # (K_max, H, W) spatial footprints (>= 0)
     C: jnp.ndarray            # (K_max, T) denoised traces
@@ -37,6 +43,9 @@ class CNMFEState:
     f: Optional[jnp.ndarray] = None   # (rank, T)
     # quality-control bitmask per neuron (Sources2D tag semantics)
     tags: Optional[jnp.ndarray] = None  # (K_max,) int32
+
+    def replace(self, **changes) -> "CNMFEState":
+        return dataclasses.replace(self, **changes)
 
     @property
     def K_max(self) -> int:

@@ -1,6 +1,6 @@
 """AR(p) calcium-dynamics model estimation and kernel conversions.
 
-TPU-native, batched equivalents of:
+Batched JAX equivalents of:
   * ``estimate_time_constant`` (autocovariance Yule-Walker solve with noise
     correction — ``OASIS_matlab/functions/estimate_time_constant.m:36-50``)
   * ``ar2exp`` / ``exp2ar`` / ``exp2kernel`` conversions

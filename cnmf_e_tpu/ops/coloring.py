@@ -3,14 +3,14 @@
 Reference: ``utilities/update_order.m:1-21`` — the reference partitions
 neurons into independent sets (via approximate vertex cover on the
 ``A'*A > 0`` overlap graph) so ``update_temporal_components.m`` can update
-each set simultaneously. This module is the TPU-native recast: a greedy
-graph coloring computed ON DEVICE (a K-step ``fori_loop`` over small
-vectors, so the neuron ordering lives inside the jitted update program),
-plus per-block independence flags consumed by the fused Pallas HALS
-kernel's free-block fast path (:mod:`cnmf_e_tpu.ops.pallas_hals`).
+each set simultaneously. This module recasts it as a greedy graph coloring
+computed ON DEVICE (a K-step ``fori_loop`` over small vectors, so the
+neuron ordering lives inside the jitted update program), plus the
+class-aligned step schedule consumed by the fused Pallas HALS kernel's
+vectorized steps (:mod:`cnmf_e_tpu.ops.pallas_hals`).
 
-Two exactness facts make the colored update bitwise-identical to the
-sequential sweep (``HALS_temporal.m:58-107`` order semantics):
+Two exactness facts make the colored update equal the sequential sweep
+(``HALS_temporal.m:58-107`` order semantics) up to float reassociation:
 
 * temporal factor: the coupling is V = A A^T, and disjoint footprints
   give V[i, j] = 0 EXACTLY (the Gram sums pixelwise products that are
@@ -70,29 +70,6 @@ def color_order(adj: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     return order, inverse
 
 
-def block_free_flags(coupling: jnp.ndarray, block: int = 16,
-                     gate: Optional[jnp.ndarray] = None) -> jnp.ndarray:
-    """Per-block independence flags for the Pallas free-block path.
-
-    coupling: (K, K) — V (temporal Gram) or the mask-overlap Gram
-    (spatial); a block is free iff every off-diagonal entry among its
-    ACTIVE rows is exactly zero. gate: optional (K,) — rows with
-    gate == 0 never update, so their couplings are ignored. Returns
-    (ceil(K/block),) int32."""
-    K = coupling.shape[0]
-    nb = -(-K // block)
-    Kp = nb * block
-    C = jnp.abs(coupling)
-    if gate is not None:
-        g = gate.astype(C.dtype)
-        C = C * g[:, None] * g[None, :]
-    C = jnp.pad(C, ((0, Kp - K), (0, Kp - K)))
-    idx = jnp.arange(Kp).reshape(nb, block)
-    Bd = C[idx[:, :, None], idx[:, None, :]]             # (nb, B, B)
-    off = Bd.sum((1, 2)) - jnp.trace(Bd, axis1=1, axis2=2)
-    return (off == 0).astype(jnp.int32)
-
-
 def class_step_schedule(colors: jnp.ndarray, block: int,
                         n_cap: Optional[int] = None
                         ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray,
@@ -105,13 +82,12 @@ def class_step_schedule(colors: jnp.ndarray, block: int,
     [starts[j], min(starts[j] + block, ends[j])) where ends[j] is the
     class end — so every step's updated rows are pairwise independent
     (same color) and the kernel applies them in ONE vectorized update
-    with an M = block residual matmul (update_order.m:1-21 semantics,
-    M-batched for the MXU instead of the old fixed-16 blocks).
+    with a block-row residual matmul (update_order.m:1-21 semantics).
 
     Dynamic class sizes can overflow the static step capacity
     ``n_cap`` (default ceil(K/block) + 32); the schedule then falls back
-    to the plain block grid with per-block independence flags — the
-    kernel's sequential path keeps correctness.
+    to the plain block grid, each block marked free only if one class
+    covers it — the kernel's sequential path keeps correctness.
 
     Returns (starts, ends, free, n_steps): (n_cap,) int32 x3 + scalar
     int32. Unused slots carry start = end = K (no rows; the kernel's
@@ -122,7 +98,7 @@ def class_step_schedule(colors: jnp.ndarray, block: int,
     if n_cap is None:
         n_cap = nb_static + 32
     # the overflow fallback emits one step per plain block — the
-    # capacity must hold at least those (SMEM reads past n_cap are OOB)
+    # capacity must hold at least those (reads past n_cap are out of bounds)
     n_cap = max(n_cap, nb_static)
     counts = jnp.bincount(colors, length=K)                 # per color
     cstart = jnp.cumsum(counts) - counts                    # class starts
@@ -131,8 +107,7 @@ def class_step_schedule(colors: jnp.ndarray, block: int,
     cs = colors  # rows already sorted by color: colors[r] nondecreasing
     # a row opens a new step at the class start, then every `block` rows
     # on the grid anchored at the 8-ALIGNED class start: the kernel
-    # slices [align8(start), align8(start) + block) (Mosaic requires
-    # multi-sublane slice starts provably 0 mod 8) and gates the update
+    # slices [align8(start), align8(start) + block) and gates the update
     # to [start, end) — anchoring at align8(cstart) keeps consecutive
     # steps' gated row ranges contiguous
     cs8 = (cstart // 8) * 8

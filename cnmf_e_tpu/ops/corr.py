@@ -37,8 +37,8 @@ def correlation_image(Y: jnp.ndarray, kernel: Optional[np.ndarray] = None,
     X = Y / jnp.maximum(denom, 1e-12)
 
     # neighbor sum as weighted spatial shifts: the kernel is a tiny 0/1
-    # stencil, and a single-channel NCHW conv lowers terribly on the TPU
-    # (no channel contraction for the MXU) — shift-adds fuse on the VPU
+    # stencil with no channel contraction, and the shift-adds fuse into
+    # one elementwise pass
     kh, kw = kernel.shape
     ph, pw = kh // 2, kw // 2
     T, H, W = X.shape

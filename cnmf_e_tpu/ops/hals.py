@@ -3,7 +3,7 @@
 Reference: ``utilities/HALS_spatial.m:26-46`` and ``utilities/HALS_temporal.m:58-107``.
 The per-neuron rank-1 updates are kept exactly (Gauss-Seidel over K neurons,
 a ``lax.fori_loop``); the Gram precomputations U = Y C^T, V = C C^T are the
-FLOP-heavy part and run as large MXU matmuls. Under a (patch, frame) mesh the
+FLOP-heavy part and run as large matmuls. Under a (patch, frame) mesh the
 Grams are computed on local shards and reduced with ``psum`` along the frame
 axis — the exact version of the reference's energy-weighted patch averaging
 (``update_temporal_parallel.m:264-280``).
@@ -17,19 +17,28 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 
+from cnmf_e_tpu.ops.kernels import PALLAS, choose
+
+
+def _kernel_chosen() -> bool:
+    return choose("hals") == PALLAS
+
+
+def _dot(a, b):
+    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
+
 
 def hals_spatial_sweeps(U: jnp.ndarray, V: jnp.ndarray, A: jnp.ndarray,
                         mask: Optional[jnp.ndarray] = None,
                         n_iter: int = 5, block: int = 16,
                         use_pallas: Optional[bool] = None,
-                        flags: Optional[jnp.ndarray] = None,
-                        schedule=None,
-                        dots: str = "highest") -> jnp.ndarray:
+                        schedule=None) -> jnp.ndarray:
     """Gauss-Seidel spatial sweeps given precomputed Grams.
 
-    On a single TPU the multi-sweep solve dispatches to the fused Pallas
-    kernel (row-major transposes at the boundary); callers running under
-    a device mesh must pass ``use_pallas=False``.
+    Where :func:`cnmf_e_tpu.ops.kernels.choose` picks the kernel, the
+    multi-sweep solve runs as the fused Pallas kernel (row-major
+    transposes at the boundary); ``use_pallas`` overrides the choice, and
+    callers running under a device mesh pass ``use_pallas=False``.
 
     U = Ysig @ Cc^T (d, K), V = Cc @ Cc^T (K, K). Callers that can express
     Ysig implicitly (e.g. the ring-background step, where
@@ -37,22 +46,21 @@ def hals_spatial_sweeps(U: jnp.ndarray, V: jnp.ndarray, A: jnp.ndarray,
 
     The sweep is BLOCKED Gauss-Seidel (exact, same update order): the naive
     per-neuron update reads the full (d, K) A for its residual matvec —
-    K reads of A per sweep, all HBM-bound. Here the block residual
+    K reads of A per sweep, all bandwidth-bound. Here the block residual
     R = U_blk - A V_blk is computed once per ``block`` neurons (one read of
     A) and the in-block updates correct it with the (d, block) delta of
-    columns updated so far — cutting sweep HBM traffic by ~``block`` x.
+    columns updated so far — cutting sweep memory traffic by ~``block`` x.
+    Every sweep dot runs at HIGHEST precision.
     """
     d, K = A.shape
     if use_pallas is None:
-        from cnmf_e_tpu.ops.pallas_hals import pallas_hals_eligible
-        use_pallas = pallas_hals_eligible(K, block)
+        use_pallas = _kernel_chosen()
     if use_pallas:
         from cnmf_e_tpu.ops.pallas_hals import hals_sweeps_rows_pallas
         out = hals_sweeps_rows_pallas(
             U.T, V, A.T, gate=jnp.ones(K, jnp.float32),
             mask=None if mask is None else mask.T,
-            n_iter=n_iter, block=block, relu=True, flags=flags,
-            schedule=schedule, dots=dots)
+            n_iter=n_iter, block=block, relu=True, schedule=schedule)
         return out.T
     cc = jnp.diag(V)
     if mask is not None:
@@ -75,13 +83,13 @@ def hals_spatial_sweeps(U: jnp.ndarray, V: jnp.ndarray, A: jnp.ndarray,
         Ub = jax.lax.dynamic_slice(U, (0, k0), (d, block))      # (d, b)
         ccb = jax.lax.dynamic_slice(cc, (k0,), (block,))
         A0 = jax.lax.dynamic_slice(A, (0, k0), (d, block))      # (d, b)
-        R = Ub - A @ Vb                                         # (d, b)
+        R = Ub - _dot(A, Vb)                                    # (d, b)
         Vbb = jax.lax.dynamic_slice(Vb, (k0, 0), (block, block))
         mb = (jax.lax.dynamic_slice(mask, (0, k0), (d, block))
               if mask is not None else None)
 
         def inner(i, Ab):
-            r = R[:, i] - (Ab - A0) @ Vbb[:, i]
+            r = R[:, i] - _dot(Ab - A0, Vbb[:, i])
             ak = Ab[:, i] + r / jnp.maximum(ccb[i], 1e-12)
             ak = jnp.maximum(ak, 0.0)
             if mb is not None:
@@ -103,32 +111,20 @@ def hals_spatial_sweeps_rows(U: jnp.ndarray, V: jnp.ndarray, A: jnp.ndarray,
                              mask: Optional[jnp.ndarray] = None,
                              n_iter: int = 5, block: int = 16,
                              use_pallas: Optional[bool] = None,
-                             flags: Optional[jnp.ndarray] = None,
-                             schedule=None,
-                             dots: str = "highest"
-                             ) -> jnp.ndarray:
+                             schedule=None) -> jnp.ndarray:
     """Row-major spatial sweeps: A, U are (K, d) — the native
-    ``A.reshape(K, d)`` layout. On a single TPU the whole multi-sweep
-    solve runs as ONE fused Pallas kernel with row tiles resident in VMEM
-    (one HBM read of A/U instead of ~n_iter x K/block — the round-3
-    latency bottleneck, PERF.md §1); elsewhere it falls back to the
-    blocked XLA path via transposes. Callers running under a device mesh
-    must pass ``use_pallas=False`` (pallas_call does not partition).
-
-    ``flags``: optional per-block independence flags (from
-    ``ops.coloring.block_free_flags`` on the MASK-overlap graph) enabling
-    the kernel's vectorized free-block path — bitwise identical, only
-    faster (update_order.m semantics). Ignored on the XLA path (whose
-    sequential sweep gives the same result by construction)."""
-    from cnmf_e_tpu.ops.pallas_hals import (hals_sweeps_rows_pallas,
-                                            pallas_hals_eligible)
+    ``A.reshape(K, d)`` layout. With the kernel chosen the whole
+    multi-sweep solve runs as ONE fused Pallas kernel over column tiles
+    of A; otherwise it runs the blocked XLA path via transposes. Callers
+    running under a device mesh pass ``use_pallas=False`` (a pallas_call
+    does not partition)."""
     if use_pallas is None:
-        use_pallas = pallas_hals_eligible(A.shape[0], block)
+        use_pallas = _kernel_chosen()
     if use_pallas:
+        from cnmf_e_tpu.ops.pallas_hals import hals_sweeps_rows_pallas
         return hals_sweeps_rows_pallas(
             U, V, A, gate=jnp.ones(A.shape[0], jnp.float32), mask=mask,
-            n_iter=n_iter, block=block, relu=True, flags=flags,
-            schedule=schedule, dots=dots)
+            n_iter=n_iter, block=block, relu=True, schedule=schedule)
     out = hals_spatial_sweeps(U.T, V, A.T,
                               mask=None if mask is None else mask.T,
                               n_iter=n_iter, block=block, use_pallas=False)
@@ -147,16 +143,17 @@ def hals_spatial(Y: jnp.ndarray, A: jnp.ndarray, C: jnp.ndarray,
 
     ``colored`` (requires ``mask``): order neurons by a greedy coloring
     of the mask-overlap graph so pairwise-independent rows share sweep
-    blocks, and pass free-block flags to the fused Pallas kernel — the
-    reference's independent-set update (``utilities/update_order.m:1-21``)
-    on the masked spatial factor. The sweep result equals sequential
-    Gauss-Seidel over the colored ordering (bitwise on the Pallas path).
+    steps, and pass the class step schedule to the fused Pallas kernel —
+    the reference's independent-set update
+    (``utilities/update_order.m:1-21``) on the masked spatial factor. The
+    sweep result equals sequential Gauss-Seidel over the colored ordering
+    up to float reassociation.
     """
     T = Y.shape[-1]
     Ymean = jnp.mean(Y, axis=1, keepdims=True)
     Cmean = jnp.mean(C, axis=1, keepdims=True)
-    U = (Y @ C.T - T * (Ymean @ Cmean.T)).astype(A.dtype)   # (d, K)
-    V = (C @ C.T - T * (Cmean @ Cmean.T)).astype(A.dtype)   # (K, K)
+    U = (_dot(Y, C.T) - T * (Ymean @ Cmean.T)).astype(A.dtype)  # (d, K)
+    V = (_dot(C, C.T) - T * (Cmean @ Cmean.T)).astype(A.dtype)  # (K, K)
     if not (colored and mask is not None):
         return hals_spatial_sweeps(U, V, A, mask=mask, n_iter=n_iter)
     from cnmf_e_tpu.ops.coloring import (class_step_schedule,
@@ -166,12 +163,11 @@ def hals_spatial(Y: jnp.ndarray, A: jnp.ndarray, C: jnp.ndarray,
     order = jnp.argsort(colors, stable=True)
     inverse = jnp.argsort(order)
     # class-aligned step schedule: every step updates one color class's
-    # rows in a single M = 64 vectorized matmul step (update_order.m
-    # semantics, M-batched for the MXU — round-5 sweep-latency lever)
-    sched = class_step_schedule(colors[order], block=64)
+    # rows in a single 32-row vectorized step (update_order.m semantics)
+    sched = class_step_schedule(colors[order], block=32)
     out = hals_spatial_sweeps(U[:, order], V[order][:, order],
                               A[:, order], mask=mask[:, order],
-                              n_iter=n_iter, block=64, schedule=sched)
+                              n_iter=n_iter, block=32, schedule=sched)
     return out[:, inverse]
 
 
@@ -179,29 +175,25 @@ def hals_temporal_sweeps(U: jnp.ndarray, V: jnp.ndarray, C: jnp.ndarray,
                          n_iter: int = 5,
                          active: Optional[jnp.ndarray] = None,
                          use_pallas: Optional[bool] = None,
-                         flags: Optional[jnp.ndarray] = None,
-                         schedule=None, block: int = 16,
-                         dots: str = "highest") -> jnp.ndarray:
+                         schedule=None, block: int = 16) -> jnp.ndarray:
     """Gauss-Seidel temporal sweeps given precomputed Grams.
 
     U = A^T Ysig (K, T), V = A^T A (K, K); U stays fixed across sweeps
     (it is built from the pre-update C, like ``HALS_temporal.m:58-107``).
-    On a single TPU the sweeps run as one fused VMEM-resident Pallas
-    kernel (same blocked Gauss-Seidel order; see
+    With the kernel chosen the sweeps run as the fused Pallas kernel over
+    frame tiles (same Gauss-Seidel order; see
     :func:`hals_spatial_sweeps_rows`); mesh callers pass
     ``use_pallas=False``.
     """
-    from cnmf_e_tpu.ops.pallas_hals import (hals_sweeps_rows_pallas,
-                                            pallas_hals_eligible)
     if use_pallas is None:
-        use_pallas = pallas_hals_eligible(C.shape[0])
+        use_pallas = _kernel_chosen()
     if use_pallas:
+        from cnmf_e_tpu.ops.pallas_hals import hals_sweeps_rows_pallas
         gate = (active if active is not None
                 else jnp.ones(C.shape[0], jnp.float32))
         return hals_sweeps_rows_pallas(U, V, C, gate=gate,
                                        n_iter=n_iter, block=block,
-                                       relu=False, flags=flags,
-                                       schedule=schedule, dots=dots)
+                                       relu=False, schedule=schedule)
     # blocked Gauss-Seidel (same scheme as the spatial path): the naive
     # per-neuron update reads the full (K, T) C for its residual matvec —
     # K reads of C per sweep (~2 TB/sweep at the 100k-frame scale config,
@@ -227,11 +219,11 @@ def hals_temporal_sweeps(U: jnp.ndarray, V: jnp.ndarray, C: jnp.ndarray,
         aab = jax.lax.dynamic_slice(aa, (k0,), (block,))
         gb = jax.lax.dynamic_slice(gate, (k0,), (block,))
         C0 = jax.lax.dynamic_slice(C, (k0, 0), (block, C.shape[1]))
-        R = Ub - Vb @ C                                         # (b, T)
+        R = Ub - _dot(Vb, C)                                    # (b, T)
         Vbb = jax.lax.dynamic_slice(Vb, (0, k0), (block, block))
 
         def inner(i, Cb):
-            r = R[i] - (Cb - C0).T @ Vbb[i]
+            r = R[i] - _dot((Cb - C0).T, Vbb[i])
             ck = Cb[i] + r / jnp.maximum(aab[i], 1e-12)
             ck = jnp.where((aab[i] > 0) & (gb[i] > 0), ck, Cb[i])
             return Cb.at[i].set(ck)
@@ -261,11 +253,11 @@ def hals_temporal(Y: jnp.ndarray, A: jnp.ndarray, C: jnp.ndarray,
 
     ``colored``: order neurons by a greedy coloring of the footprint
     overlap graph (V = A^T A has EXACT zeros for disjoint footprints) and
-    flag independent sweep blocks for the Pallas kernel's vectorized path
+    pass the class step schedule to the Pallas kernel's vectorized steps
     (``utilities/update_order.m:1-21`` semantics).
     """
-    U = (A.T @ Y).astype(C.dtype)          # (K, T)
-    V = (A.T @ A).astype(C.dtype)          # (K, K)
+    U = _dot(A.T, Y).astype(C.dtype)       # (K, T)
+    V = _dot(A.T, A).astype(C.dtype)       # (K, K)
     if not colored:
         C = hals_temporal_sweeps(U, V, C, n_iter=n_iter, active=active)
         return C, jnp.diag(V)
@@ -277,9 +269,9 @@ def hals_temporal(Y: jnp.ndarray, A: jnp.ndarray, C: jnp.ndarray,
     inverse = jnp.argsort(order)
     Vp = V[order][:, order]
     act = None if active is None else active[order]
-    sched = class_step_schedule(colors[order], block=64)
+    sched = class_step_schedule(colors[order], block=32)
     out = hals_temporal_sweeps(U[order], Vp, C[order],
-                               n_iter=n_iter, active=act, block=64,
+                               n_iter=n_iter, active=act, block=32,
                                schedule=sched)
     return out[inverse], jnp.diag(V)
 

@@ -8,7 +8,7 @@ spike train under the proposed kernel and accepts on
 exp((logC' - logC) / (2 sn^2)) — and (M) a constrained-foopsi refit with g
 rebuilt from the mean sampled taus.
 
-TPU re-design: fully batched over traces. The per-proposal trace synthesis
+Batched re-design: fully batched over traces. The per-proposal trace synthesis
 c = (g2 * filt(s, g2) - g1 * filt(s, g1)) / (g2 - g1) (MCEM_foopsi.m:66-73,
 the G1/G2 bidiagonal solves) is a pair of truncated-exponential causal
 convolutions — one (N, T) conv per proposal instead of MATLAB's per-trace

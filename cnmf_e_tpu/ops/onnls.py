@@ -4,7 +4,7 @@ Reference: ``OASIS_matlab/packages/oasis/onnls.m:1-50`` — slides a window
 (win=200, shift=100) over the trace, solving a warm-started active-set NNLS
 per window and carrying forward the contribution of committed spikes.
 
-TPU re-design: the kernel is a difference of exponentials
+Batched re-design: the kernel is a difference of exponentials
 ``h[t] = (d^(t+1) - r^(t+1)) / (d - r)``, so the influence of *all* past
 spikes on future samples is captured exactly by a 2-dimensional exponential
 state ``(z_d, z_r)``. We scan over windows; each step

@@ -1,9 +1,8 @@
-"""Order-statistic helpers tuned for TPU.
+"""Order-statistic helpers that avoid sorts.
 
-``jnp.median`` lowers to a full XLA sort — on TPU that is a surprisingly
-expensive VPU program (measured 6.7 ms for a (192, 2000) median, as much as
-the 100-GFLOP HALS Grams; a (2000, 256, 256) frame-axis median inside
-initialization is far worse). The medians in this codebase are used as
+``jnp.median`` lowers to a full XLA sort, which costs far more than the
+reductions around it (a (2000, 256, 256) frame-axis median inside
+initialization above all). The medians in this codebase are used as
 robust centers/thresholds (trace baselines, filtered-movie centering), so a
 value-space bisection that converges to the k-th smallest element is exact
 for every practical purpose (final bracket width = value range / 2^iters)
@@ -51,12 +50,25 @@ def fast_median(x: jnp.ndarray, axis: int = -1, keepdims: bool = False,
 
 def submedian_mean(x: jnp.ndarray, axis: int = -1) -> jnp.ndarray:
     """Mean of the samples strictly below the median — the per-trace
-    baseline estimator of ``HALS_temporal.m:79`` — without the sort."""
+    baseline estimator of ``HALS_temporal.m:79`` — without the sort.
+
+    The set is taken as the ceil(n/2) smallest samples (``x <= hi``,
+    which the bisection guarantees holds them), less the largest of them
+    when n is odd: as ``x < median`` selects in the reference. Selecting
+    ``x < hi`` would depend on where the bisection stops: on a calcium
+    trace (sparse transients over a small noise floor, range >> 100x the
+    median) it stops a few ulps from the middle sample, and a 1e-6
+    relative change of x moved the baseline by up to 1e-3 relative.
+    """
+    n_all = x.shape[axis]
     med = fast_median(x, axis=axis, keepdims=True)
-    below = x < med
-    s = jnp.sum(jnp.where(below, x, 0.0), axis=axis)
-    n = jnp.maximum(jnp.sum(below, axis=axis), 1)
-    return s / n
+    sel = x <= med
+    s = jnp.sum(jnp.where(sel, x, 0.0), axis=axis)
+    n = jnp.sum(sel, axis=axis)
+    if n_all % 2:
+        s = s - jnp.max(jnp.where(sel, x, -jnp.inf), axis=axis)
+        n = n - 1
+    return s / jnp.maximum(n, 1)
 
 
 def fast_median_masked(x: jnp.ndarray, mask: jnp.ndarray, axis: int = -1,
@@ -65,8 +77,7 @@ def fast_median_masked(x: jnp.ndarray, mask: jnp.ndarray, axis: int = -1,
     bisection (no sort). ``mask`` broadcasts against ``x``; rows with no
     selected entries return 0. Used where the reference takes a median
     over a masked pixel subset (``extract_ac.m:37`` background rows) — a
-    ``jnp.nanmedian`` there lowers to a full sort per row, the single
-    most expensive op in batched seed extraction on TPU."""
+    ``jnp.nanmedian`` there lowers to a full sort per row."""
     x = jnp.asarray(x)
     axis = axis % x.ndim
     mask = jnp.broadcast_to(mask, x.shape)

@@ -2,8 +2,8 @@
 
 The reference's only "multi-node" story is a blocked HDF5 file on shared
 storage read by every parfor worker (``get_patch_data.m:16-31``,
-SURVEY.md 2.9 "worker data plane"). On a TPU pod the data plane is HBM +
-ICI; only INGEST touches the filesystem, and each host should read only
+SURVEY.md 2.9 "worker data plane"). Here the data plane is device memory
+and the device interconnect; only INGEST touches the filesystem, and each host should read only
 the frame blocks its local devices own (DCN/filesystem traffic scales
 1/n_hosts). This module provides that path:
 
@@ -19,7 +19,7 @@ the frame blocks its local devices own (DCN/filesystem traffic scales
 The update step (``parallel/step.py``) then runs unchanged: its Gram
 psums reduce over the frame axis across hosts (exact — the reference's
 temporal-batch averaging made exact, ``update_spatial_batch.m:20-35``),
-and stencil halo exchange stays within each host's patch axis over ICI.
+and stencil halo exchange stays within each host's patch axis.
 """
 
 from __future__ import annotations

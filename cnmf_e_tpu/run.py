@@ -45,8 +45,17 @@ def build_params(args):
                                fs=args.fs or p.fs)
 
 
+def _have_matplotlib() -> bool:
+    """Figures need matplotlib, which the main path does not."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="TPU-native CNMF-E pipeline")
+    ap = argparse.ArgumentParser(description="CNMF-E pipeline")
     ap.add_argument("movie", help="input movie (.tif/.h5/.npy)")
     ap.add_argument("--workdir", default=None,
                     help="output directory (default: <movie>_cnmfe)")
@@ -90,7 +99,6 @@ def main(argv=None):
     from cnmf_e_tpu.io.movie import load_movie, probe_movie
     from cnmf_e_tpu.io.store import distribute_movie
     from cnmf_e_tpu.models.pipeline import CNMFE
-    from cnmf_e_tpu.utils.viz import plot_summary
 
     if not os.path.exists(args.movie):
         print(f"error: input movie not found: {args.movie}", file=sys.stderr)
@@ -167,7 +175,10 @@ def main(argv=None):
         run_log.log("dff -> dff.npz")
 
     n = int(np.asarray(state.active).sum())
-    if args.neuron_panels and n > 0:
+    have_mpl = _have_matplotlib()
+    if args.neuron_panels and n > 0 and not have_mpl:
+        run_log.log("neuron panels skipped: matplotlib is not installed")
+    elif args.neuron_panels and n > 0:
         from cnmf_e_tpu.utils.viz import save_neuron_panels
         save_neuron_panels(os.path.join(run_log.dir, "neurons"),
                            np.asarray(state.A)[:n],
@@ -178,13 +189,18 @@ def main(argv=None):
         run_log.log("neuron panels -> neurons/")
 
     # summary figure
-    if n > 0:
+    if n > 0 and not have_mpl:
+        run_log.log("summary figure skipped: matplotlib is not installed")
+    elif n > 0:
+        from cnmf_e_tpu.utils.viz import plot_summary
         Cn = np.asarray(model.info.get("Cn", np.zeros(shape[1:])))
         png = plot_summary(os.path.join(run_log.dir, "summary.png"), Cn,
                            np.asarray(state.A)[:n], np.asarray(state.C)[:n])
         run_log.log(f"summary figure -> {png}")
 
-    if args.report and n > 0:
+    if args.report and n > 0 and not have_mpl:
+        run_log.log("report skipped: matplotlib is not installed")
+    elif args.report and n > 0:
         from cnmf_e_tpu.utils.report import generate_html_report
         Cn = np.asarray(model.info.get("Cn", np.zeros(shape[1:])))
         rpt = generate_html_report(

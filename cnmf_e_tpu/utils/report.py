@@ -4,7 +4,7 @@ The reference ships a MATLAB GUI (``GUI/cnmfe.m:18-32`` assembling panels
 from ``GUI/modules/*``) and the interactive per-neuron QC loop
 ``viewNeurons`` / ``displayNeurons`` (keep / delete / inspect each neuron,
 ``@Sources2D/viewNeurons.m``). This module re-designs that capability for a
-headless TPU workflow: one self-contained HTML file (no server, no external
+headless accelerator workflow: one self-contained HTML file (no server, no external
 assets) with
 
   * the correlation image + clickable footprint contours,

@@ -252,3 +252,61 @@ def simulate_movie_store(out_dir: str, seed: int = 0, H: int = 512,
     np.save(os.path.join(out_dir, "gt_C_decim.npy"),
             np.concatenate(C_dec, axis=1).astype(np.float16))
     return MovieStore(out_dir)
+
+
+def update_step_problem(H: int = 256, W: int = 256, T: int = 2000,
+                        K: int = 192, radius: int = 13, seed: int = 0,
+                        planted: bool = False):
+    """Synthetic input of the chained model-update step
+    (``parallel/step.py::make_update_step``): a noisy movie and a
+    ``StepState`` with compact gaussian footprints. Compact support, like
+    real (relu'd and trimmed) pipeline footprints, gives the colored
+    update its disjoint neuron pairs. Returns ``(Y, state)`` as device
+    arrays.
+
+    By default the movie is noise around a flat baseline, the traces are
+    random nonneg numbers and the ring weights uniform: the step fits
+    noise, and OASIS's spike threshold sits inside that noise.
+    ``planted=True`` builds the movie from the footprints and AR(1) spike
+    traces (g = 0.92, amplitudes >= 1) over the flat baseline plus noise,
+    and starts the state from the true footprints and noisy traces with
+    zero ring weights (the truth): a converging refinement, as on a
+    fitted recording."""
+    import jax
+    import jax.numpy as jnp
+
+    from cnmf_e_tpu.ops.ring import ring_offsets
+    from cnmf_e_tpu.parallel.step import StepState
+
+    R = ring_offsets(radius).shape[0]
+    rng = np.random.default_rng(seed)
+    noise = jnp.asarray(rng.standard_normal((T, H, W)) * 0.1 + 1.0,
+                        jnp.float32)
+    A = np.zeros((K, H, W), np.float32)
+    yy, xx = np.mgrid[0:H, 0:W]
+    for k in range(K):
+        cy, cx = rng.uniform(10, H - 10), rng.uniform(10, W - 10)
+        A[k] = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 18.0)
+    A[A < 1e-3] = 0.0
+    ring_w = np.full((H * W, R), 1.0 / R, np.float32)
+    if planted:
+        s = (rng.random((K, T)) < 0.02) * (1.0 + rng.exponential(1.0, (K, T)))
+        C = np.zeros((K, T), np.float32)
+        for t in range(1, T):
+            C[:, t] = 0.92 * C[:, t - 1] + s[:, t]
+        Y = noise + jnp.einsum("khw,kt->thw", A, C,
+                               precision=jax.lax.Precision.HIGHEST)
+        C = np.maximum(C + 0.1 * rng.standard_normal((K, T)), 0.0)
+        ring_w[:] = 0.0
+    else:
+        Y = noise
+        C = np.abs(rng.standard_normal((K, T)))
+    st = StepState(
+        A=jnp.asarray(A), C=jnp.asarray(C, jnp.float32),
+        C_raw=jnp.zeros((K, T), jnp.float32),
+        S=jnp.zeros((K, T), jnp.float32),
+        g=jnp.full((K,), 0.92, jnp.float32),
+        b0=jnp.ones((H, W), jnp.float32),
+        ring_w=jnp.asarray(ring_w),
+        ring_w0=jnp.zeros((H * W,), jnp.float32))
+    return Y, st

@@ -3,18 +3,18 @@
 Runs the full CNMF-E pipeline on a synthetic micro-endoscopic movie with
 known ground truth, reports detection/trace metrics, and writes the result
 bundle + figures. Swap ``simulate_movie`` for ``load_movie(path)`` to run
-on real data (or use the CLI: ``python -m cnmf_e.run movie.tif``).
+on real data (or use the CLI: ``python -m cnmf_e_tpu.run movie.tif``).
 """
 
 import numpy as np
 
-from cnmf_e.config import (BackgroundParams, CNMFEParams, InitParams,
-                           MergeParams)
-from cnmf_e.io.export import save_results
-from cnmf_e.models.pipeline import CNMFE
-from cnmf_e.utils.metrics import detection_f1, trace_corr
-from cnmf_e.utils.simulate import simulate_movie
-from cnmf_e.utils.viz import plot_summary, save_neuron_panels
+from cnmf_e_tpu.config import (BackgroundParams, CNMFEParams, InitParams,
+                               MergeParams)
+from cnmf_e_tpu.io.export import save_results
+from cnmf_e_tpu.models.pipeline import CNMFE
+from cnmf_e_tpu.utils.metrics import detection_f1, trace_corr
+from cnmf_e_tpu.utils.simulate import simulate_movie
+from cnmf_e_tpu.utils.viz import plot_summary, save_neuron_panels
 
 
 def main():

@@ -3,11 +3,11 @@ pipeline with an SVD background (demo_large_data_2p.m role)."""
 
 import numpy as np
 
-from cnmf_e.config import BackgroundParams, CNMFEParams, InitParams
-from cnmf_e.models.cnmf2p import CNMF
-from cnmf_e.models.pipeline import CNMFE
-from cnmf_e.utils.metrics import detection_f1
-from cnmf_e.utils.simulate import simulate_movie
+from cnmf_e_tpu.config import BackgroundParams, CNMFEParams, InitParams
+from cnmf_e_tpu.models.cnmf2p import CNMF
+from cnmf_e_tpu.models.pipeline import CNMFE
+from cnmf_e_tpu.utils.metrics import detection_f1
+from cnmf_e_tpu.utils.simulate import simulate_movie
 
 
 def main():

@@ -14,15 +14,15 @@ import numpy as np
 
 
 def main(H=512, W=512, T=10000, K=400, block=1000):
-    from cnmf_e.utils.cache import enable_compilation_cache
+    from cnmf_e_tpu.utils.cache import enable_compilation_cache
     enable_compilation_cache()
     import jax.numpy as jnp
-    from cnmf_e.config import (BackgroundParams, CNMFEParams,
-                               InitParams, MergeParams)
-    from cnmf_e.io.store import MovieStore, distribute_movie
-    from cnmf_e.models.streaming import fit_streaming
-    from cnmf_e.utils.metrics import detection_f1, trace_corr
-    from cnmf_e.utils.simulate import simulate_movie
+    from cnmf_e_tpu.config import (BackgroundParams, CNMFEParams,
+                                   InitParams, MergeParams)
+    from cnmf_e_tpu.io.store import MovieStore, distribute_movie
+    from cnmf_e_tpu.models.streaming import fit_streaming
+    from cnmf_e_tpu.utils.metrics import detection_f1, trace_corr
+    from cnmf_e_tpu.utils.simulate import simulate_movie
     import os
     import tempfile
 

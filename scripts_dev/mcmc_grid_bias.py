@@ -1,7 +1,7 @@
 import jax; jax.config.update("jax_platforms", "cpu")
 import numpy as np, jax.numpy as jnp, jax
-from cnmf_e.ops.mcmc import mcmc_spikes
-from cnmf_e.ops.ar import exp2ar
+from cnmf_e_tpu.ops.mcmc import mcmc_spikes
+from cnmf_e_tpu.ops.ar import exp2ar
 
 D, R = 0.92, 0.4
 def h_cont(u):

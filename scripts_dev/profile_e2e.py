@@ -10,7 +10,7 @@ Usage: python scripts_dev/profile_e2e.py [H W T K n_outer]
 import sys
 import time
 
-from cnmf_e.utils.cache import enable_compilation_cache
+from cnmf_e_tpu.utils.cache import enable_compilation_cache
 
 enable_compilation_cache()
 
@@ -27,9 +27,9 @@ def main():
     K = args[3] if len(args) > 3 else 100
     n_outer = args[4] if len(args) > 4 else 2
 
-    from cnmf_e.utils.simulate import simulate_movie
-    from cnmf_e.models.pipeline import CNMFE
-    from cnmf_e.config import CNMFEParams
+    from cnmf_e_tpu.utils.simulate import simulate_movie
+    from cnmf_e_tpu.models.pipeline import CNMFE
+    from cnmf_e_tpu.config import CNMFEParams
 
     print(f"backend={jax.default_backend()} devices={jax.devices()}",
           flush=True)
@@ -43,7 +43,7 @@ def main():
     t0 = time.time()
     state = model.fit(gt.Y, n_outer=n_outer, verbose=True)
     wall = time.time() - t0
-    from cnmf_e.utils.metrics import detection_f1
+    from cnmf_e_tpu.utils.metrics import detection_f1
     f1 = detection_f1(np.asarray(state.masked_A()), gt.A)
     mpf = H * W * T / wall / 1e6
     print(f"\nE2E: {wall:.1f}s  -> {mpf:.1f} Mpixel-frames/s  "

@@ -12,7 +12,7 @@ identify the dominant compute.
 
 import sys
 
-from cnmf_e.utils.cache import enable_compilation_cache
+from cnmf_e_tpu.utils.cache import enable_compilation_cache
 
 enable_compilation_cache()
 
@@ -24,18 +24,18 @@ import numpy as np  # noqa: E402
 def main():
     H = W = 256
     T = 2000
-    from cnmf_e.utils.simulate import simulate_movie
-    from cnmf_e.config import CNMFEParams
-    from cnmf_e.models.initialize import (
+    from cnmf_e_tpu.utils.simulate import simulate_movie
+    from cnmf_e_tpu.config import CNMFEParams
+    from cnmf_e_tpu.models.initialize import (
         _local_maxima_topk, _mark_searched, _place_footprints_masked,
         _search_image, _weak_signal_test, extract_ac_batch)
-    from cnmf_e.models.state import empty_state
-    from cnmf_e.ops.filters import filter_movie, gaussian_psf
-    from cnmf_e.ops.corr import correlation_image
-    from cnmf_e.ops.noise import noise_psd_frames
-    from cnmf_e.ops.oasis import deconvolve
-    from cnmf_e.ops.stats import fast_median
-    from cnmf_e.utils.profiling import StageTimer
+    from cnmf_e_tpu.models.state import empty_state
+    from cnmf_e_tpu.ops.filters import filter_movie, gaussian_psf
+    from cnmf_e_tpu.ops.corr import correlation_image
+    from cnmf_e_tpu.ops.noise import noise_psd_frames
+    from cnmf_e_tpu.ops.oasis import deconvolve
+    from cnmf_e_tpu.ops.stats import fast_median
+    from cnmf_e_tpu.utils.profiling import StageTimer
 
     gt = simulate_movie(seed=7, H=H, W=W, T=T, K=100, gSig=3.0, sn=0.08,
                         bg_strength=0.8, min_dist=7.0, spike_rate=0.03)

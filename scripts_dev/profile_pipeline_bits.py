@@ -4,7 +4,7 @@ merge stats fetch. Steady-state (2nd call) wall times with forced sync."""
 
 import time
 
-from cnmf_e.utils.cache import enable_compilation_cache
+from cnmf_e_tpu.utils.cache import enable_compilation_cache
 
 enable_compilation_cache()
 
@@ -30,13 +30,13 @@ def tick(name, fn, *a, **k):
 def main():
     H = W = 256
     T = 2000
-    from cnmf_e.utils.simulate import simulate_movie
-    from cnmf_e.config import CNMFEParams
-    from cnmf_e.models.initialize import (_init_prolog,
-                                          _make_init_round)
-    from cnmf_e.models.state import empty_state
-    from cnmf_e.models.merge import _merge_stats
-    from cnmf_e.ops.noise import noise_psd_frames
+    from cnmf_e_tpu.utils.simulate import simulate_movie
+    from cnmf_e_tpu.config import CNMFEParams
+    from cnmf_e_tpu.models.initialize import (_init_prolog,
+                                              _make_init_round)
+    from cnmf_e_tpu.models.state import empty_state
+    from cnmf_e_tpu.models.merge import _merge_stats
+    from cnmf_e_tpu.ops.noise import noise_psd_frames
 
     gt = simulate_movie(seed=7, H=H, W=W, T=T, K=120, gSig=3.0, sn=0.1,
                         bg_strength=1.0, min_dist=9.0, spike_rate=0.02)
@@ -70,17 +70,17 @@ def main():
     tick("merge_stats+fetch",
          lambda s: np.asarray(_merge_stats(s)), st2)
 
-    from cnmf_e.models.background import (residual_movie,
-                                          update_background,
-                                          subtract_background)
+    from cnmf_e_tpu.models.background import (residual_movie,
+                                              update_background,
+                                              subtract_background)
     sn_pix = noise_psd_frames(Y)
     st3 = tick("update_background", update_background, Y, st2, p,
                sn_pix=sn_pix)
     tick("subtract_background", subtract_background, Y, st3, p)
     tick("residual_movie", residual_movie, Y, st3, p)
 
-    from cnmf_e.models.spatial import update_spatial
-    from cnmf_e.models.temporal import update_temporal
+    from cnmf_e_tpu.models.spatial import update_spatial
+    from cnmf_e_tpu.models.temporal import update_temporal
     Ysig2 = subtract_background(Y, st3, p)
     tick("update_spatial", update_spatial, Ysig2, st3, p)
     tick("update_temporal", update_temporal, Ysig2, st3, p)

@@ -11,15 +11,15 @@ import time
 
 import numpy as np
 
-from cnmf_e.utils.cache import enable_compilation_cache
+from cnmf_e_tpu.utils.cache import enable_compilation_cache
 
 enable_compilation_cache()
 
 import jax.numpy as jnp  # noqa: E402
 
-from cnmf_e.config import CNMFEParams  # noqa: E402
-from cnmf_e.models.pipeline import CNMFE  # noqa: E402
-from cnmf_e.utils.simulate import simulate_movie  # noqa: E402
+from cnmf_e_tpu.config import CNMFEParams  # noqa: E402
+from cnmf_e_tpu.models.pipeline import CNMFE  # noqa: E402
+from cnmf_e_tpu.utils.simulate import simulate_movie  # noqa: E402
 
 
 def main():

@@ -37,14 +37,14 @@ def timeit(fn, *args, chain_div=1):
 
 
 def main():
-    from cnmf_e.utils.cache import enable_compilation_cache
+    from cnmf_e_tpu.utils.cache import enable_compilation_cache
     enable_compilation_cache()
-    from cnmf_e.ops.hals import hals_spatial_sweeps, hals_temporal_sweeps
-    from cnmf_e.ops.noise import noise_psd
-    from cnmf_e.ops.oasis import foopsi_ar1
-    from cnmf_e.ops.ring import ring_offsets
-    from cnmf_e.parallel.step import (StepState, make_bg_projection,
-                                      make_hals_iteration)
+    from cnmf_e_tpu.ops.hals import hals_spatial_sweeps, hals_temporal_sweeps
+    from cnmf_e_tpu.ops.noise import noise_psd
+    from cnmf_e_tpu.ops.oasis import foopsi_ar1
+    from cnmf_e_tpu.ops.ring import ring_offsets
+    from cnmf_e_tpu.parallel.step import (StepState, make_bg_projection,
+                                          make_hals_iteration)
 
     H = W = 256
     T = 2000

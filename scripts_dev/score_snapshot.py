@@ -19,7 +19,7 @@ def main():
     z = np.load(os.path.join(store, "snapshot.npz"))
     gt = np.load(os.path.join(store, "ground_truth.npz"))
 
-    from cnmf_e.utils.metrics import detection_f1, trace_corr
+    from cnmf_e_tpu.utils.metrics import detection_f1, trace_corr
 
     act = np.asarray(z["active"]).astype(bool)
     A = np.asarray(z["A"], np.float32)[act]

@@ -23,10 +23,10 @@ def main():
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from cnmf_e.io.store import MovieStore
-    from cnmf_e.parallel.mesh import make_mesh
-    from cnmf_e.parallel.multihost import (frame_range_for_process,
-                                           load_sharded_movie)
+    from cnmf_e_tpu.io.store import MovieStore
+    from cnmf_e_tpu.parallel.mesh import make_mesh
+    from cnmf_e_tpu.parallel.multihost import (frame_range_for_process,
+                                               load_sharded_movie)
 
     assert jax.process_count() == int(nprocs)
     assert len(jax.devices()) == 4 * int(nprocs)

@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e.ops.ar import (ar2exp, ar_kernel, choose_smin,
-                           estimate_time_constant, exp2ar)
+from cnmf_e_tpu.ops.ar import (ar2exp, ar_kernel, choose_smin,
+                               estimate_time_constant, exp2ar)
 from tests.oracles import ar1_trace
 
 

@@ -12,10 +12,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cnmf_e.config import CNMFEParams, InitParams
-from cnmf_e.models.pipeline import CNMFE
-from cnmf_e.utils.metrics import detection_f1
-from cnmf_e.utils.simulate import gaussian_footprints, smooth_field
+from cnmf_e_tpu.config import CNMFEParams, InitParams
+from cnmf_e_tpu.models.pipeline import CNMFE
+from cnmf_e_tpu.utils.metrics import detection_f1
+from cnmf_e_tpu.utils.simulate import gaussian_footprints, smooth_field
 
 
 def _ar2_movie(seed=3, H=64, W=64, T=600, K=8, d=0.92, r=0.45, sn=0.06):
@@ -90,8 +90,8 @@ def test_ar2_constrained_pipeline_hits_rss_budget():
     # sn^2 T — e.g. when the PSD estimate of an ultra-clean trace is
     # tiny) sit at the lambda = 0 end of the path, like the reference.
     # Verify that explicitly with an unconstrained AR(2) fit.
-    from cnmf_e.config import DeconvParams
-    from cnmf_e.ops.oasis import deconvolve
+    from cnmf_e_tpu.config import DeconvParams
+    from cnmf_e_tpu.ops.oasis import deconvolve
     res0 = deconvolve(jnp.asarray(C_raw), DeconvParams(
         model="ar2", method="foopsi", lam=0.0, optimize_b=False),
         sn=jnp.asarray(sn))

@@ -1,10 +1,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e.ops.lowrank import fit_lowrank_model, nmf_hals, randomized_svd
-from cnmf_e.ops.ring import (apply_ring, fit_ring_model, fit_ring_weights,
-                             reconstruct_ring_background, ring_offsets)
-from cnmf_e.utils.simulate import simulate_movie
+from cnmf_e_tpu.ops.lowrank import fit_lowrank_model, nmf_hals, randomized_svd
+from cnmf_e_tpu.ops.ring import (apply_ring, fit_ring_model, fit_ring_weights,
+                                 reconstruct_ring_background, ring_offsets)
+from cnmf_e_tpu.utils.simulate import simulate_movie
 
 
 def test_ring_offsets_geometry():
@@ -92,7 +92,7 @@ def test_fit_ring_weights_masked_no_intercept_oracle(rng):
     """Masked, intercept-free ring fit matches a per-pixel numpy ridge
     solved only over that pixel's unmasked frames
     (local_background.m:113-127 semantics)."""
-    from cnmf_e.ops.ring import ring_offsets, _neighbor_index
+    from cnmf_e_tpu.ops.ring import ring_offsets, _neighbor_index
 
     H = W = 10
     T = 60
@@ -126,7 +126,7 @@ def test_local_background_event_masked():
     """local_background recovers a smooth background under sparse calcium
     transients; the event mask must reduce neuron contamination vs. a fit
     with the mask disabled (thresh=inf)."""
-    from cnmf_e.ops.ring import local_background
+    from cnmf_e_tpu.ops.ring import local_background
 
     gt = simulate_movie(seed=5, H=48, W=48, T=300, K=6, gSig=2.0,
                         sn=0.05, bg_strength=1.5, min_dist=10.0,
@@ -158,7 +158,7 @@ def test_local_background_event_masked():
 
 
 def test_local_background_ssub_and_cutoff():
-    from cnmf_e.ops.ring import local_background
+    from cnmf_e_tpu.ops.ring import local_background
 
     gt = simulate_movie(seed=6, H=40, W=40, T=200, K=4, gSig=2.0,
                         sn=0.05, bg_strength=1.0, min_dist=10.0)
@@ -175,9 +175,9 @@ def test_local_background_ssub_and_cutoff():
 def test_background_local_model_dispatch():
     """model='local' flows through update_background / background_of."""
     import dataclasses
-    from cnmf_e.config import CNMFEParams
-    from cnmf_e.models.background import background_of, update_background
-    from cnmf_e.models.state import empty_state
+    from cnmf_e_tpu.config import CNMFEParams
+    from cnmf_e_tpu.models.background import background_of, update_background
+    from cnmf_e_tpu.models.state import empty_state
 
     gt = simulate_movie(seed=9, H=32, W=32, T=150, K=3, gSig=2.0,
                         sn=0.05, bg_strength=1.0, min_dist=9.0)

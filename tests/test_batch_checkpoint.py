@@ -4,12 +4,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cnmf_e.checkpoint import RunLog, find_latest_run, restore_state
-from cnmf_e.config import (BackgroundParams, CNMFEParams, InitParams,
-                           MergeParams)
-from cnmf_e.models.batch import fit_batches
-from cnmf_e.utils.metrics import detection_f1, trace_corr
-from cnmf_e.utils.simulate import simulate_movie
+from cnmf_e_tpu.checkpoint import RunLog, find_latest_run, restore_state
+from cnmf_e_tpu.config import (BackgroundParams, CNMFEParams, InitParams,
+                               MergeParams)
+from cnmf_e_tpu.models.batch import fit_batches
+from cnmf_e_tpu.utils.metrics import detection_f1, trace_corr
+from cnmf_e_tpu.utils.simulate import simulate_movie
 
 
 def _params():
@@ -38,7 +38,7 @@ def test_batch_mode_concatenates_and_matches_truth(tmp_path):
 
 
 def test_runlog_snapshot_and_restore(tmp_path):
-    from cnmf_e.models.state import empty_state
+    from cnmf_e_tpu.models.state import empty_state
     params = _params()
     log = RunLog(str(tmp_path), params=params)
     st = empty_state(16, 24, 24, 100)
@@ -62,7 +62,7 @@ def test_runlog_snapshot_and_restore(tmp_path):
 
 @pytest.mark.slow
 def test_pipeline_resume_from_snapshot(tmp_path):
-    from cnmf_e.models.pipeline import CNMFE
+    from cnmf_e_tpu.models.pipeline import CNMFE
     gt = simulate_movie(seed=71, H=48, W=48, T=400, K=6, gSig=2.5,
                         sn=0.08, bg_strength=0.6, min_dist=12.0,
                         spike_rate=0.04)

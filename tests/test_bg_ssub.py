@@ -1,10 +1,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e.config import BackgroundParams, CNMFEParams
-from cnmf_e.models.background import (background_of, update_background)
-from cnmf_e.models.state import empty_state
-from cnmf_e.utils.simulate import simulate_movie
+from cnmf_e_tpu.config import BackgroundParams, CNMFEParams
+from cnmf_e_tpu.models.background import (background_of, update_background)
+from cnmf_e_tpu.models.state import empty_state
+from cnmf_e_tpu.utils.simulate import simulate_movie
 
 
 def test_ring_background_with_ssub():

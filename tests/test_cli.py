@@ -10,9 +10,9 @@ import numpy as np
 
 
 def test_cli_runs_without_matplotlib(tmp_path, monkeypatch, capsys):
-    from cnmf_e.io.tiff import write_tiff
-    from cnmf_e.run import main
-    from cnmf_e.utils.simulate import simulate_movie
+    from cnmf_e_tpu.io.tiff import write_tiff
+    from cnmf_e_tpu.run import main
+    from cnmf_e_tpu.utils.simulate import simulate_movie
 
     gt = simulate_movie(seed=33, H=32, W=32, T=200, K=4, gSig=2.5,
                         sn=0.08, bg_strength=0.7, min_dist=10.0,

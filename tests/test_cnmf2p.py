@@ -2,12 +2,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cnmf_e.models.cnmf2p import (CNMF, find_unsaturated_pixels,
-                                  greedy_roi, interp_missing_data,
-                                  lasso_noise_constrained,
-                                  preprocess_data)
-from cnmf_e.utils.metrics import detection_f1, trace_corr
-from cnmf_e.utils.simulate import simulate_movie
+from cnmf_e_tpu.models.cnmf2p import (CNMF, find_unsaturated_pixels,
+                                      greedy_roi, interp_missing_data,
+                                      lasso_noise_constrained,
+                                      preprocess_data)
+from cnmf_e_tpu.utils.metrics import detection_f1, trace_corr
+from cnmf_e_tpu.utils.simulate import simulate_movie
 
 
 def test_interp_missing_data(rng):

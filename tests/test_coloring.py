@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cnmf_e.ops.coloring import (color_order, greedy_color,
+from cnmf_e_tpu.ops.coloring import (color_order, greedy_color,
                                  overlap_adjacency)
-from cnmf_e.ops.hals import hals_spatial_sweeps
+from cnmf_e_tpu.ops.hals import hals_spatial_sweeps
 
 
 def _compact_problem(seed=0, H=28, W=28, K=21, T=90, rad=3):
@@ -74,12 +74,12 @@ def test_overlap_adjacency_matches_supports():
 def test_colored_iteration_matches_explicit():
     """make_hals_iteration(colored=True) == explicit masked sequential
     sweeps over the same (color-sorted) ordering, un-permuted."""
-    from cnmf_e.ops.hals import hals_temporal_sweeps
-    from cnmf_e.ops.morphology import search_locations_dilate
-    from cnmf_e.ops.ring import ring_offsets
-    from cnmf_e.ops.stats import submedian_mean
-    from cnmf_e.parallel.step import (StepState, make_bg_projection,
-                                      make_hals_iteration)
+    from cnmf_e_tpu.ops.hals import hals_temporal_sweeps
+    from cnmf_e_tpu.ops.morphology import search_locations_dilate
+    from cnmf_e_tpu.ops.ring import ring_offsets
+    from cnmf_e_tpu.ops.stats import submedian_mean
+    from cnmf_e_tpu.parallel.step import (StepState, make_bg_projection,
+                                          make_hals_iteration)
 
     H = W = 32
     T, K, radius = 64, 12, 4

@@ -21,7 +21,7 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from cnmf_e.ops.oasis import constrained_ar1
+from cnmf_e_tpu.ops.oasis import constrained_ar1
 
 
 def _ar1_traces(seed=0, T=300, g=0.92, sn=0.25, rate=0.04):
@@ -98,7 +98,7 @@ def test_constrained_oasis_matches_dual_oracle():
 def test_dual_inner_matches_oasis_lagrangian():
     """At FIXED lambda the inner problems must agree too (this isolates
     the penalized solve from the outer constraint search)."""
-    from cnmf_e.ops.oasis import oasis_ar1
+    from cnmf_e_tpu.ops.oasis import oasis_ar1
     y, _, g, sn = _ar1_traces(seed=2, T=200)
     for lam in (0.1, 0.5):
         c_qp = _dual_inner(y, g, lam)

@@ -1,9 +1,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e.ops.detrend import (bspline_basis, detrend, detrend_local_min,
-                                detrend_spline)
-from cnmf_e.ops.spikes import decorr_temporal, event_detection
+from cnmf_e_tpu.ops.detrend import (bspline_basis, detrend, detrend_local_min,
+                                    detrend_spline)
+from cnmf_e_tpu.ops.spikes import decorr_temporal, event_detection
 
 
 def test_bspline_basis_partition_of_unity():

@@ -1,15 +1,16 @@
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
-from cnmf_e.config import CNMFEParams, SpatialParams
-from cnmf_e.models.merge import merge_pairs
-from cnmf_e.models.qc import order_neurons
-from cnmf_e.models.state import empty_state
-from cnmf_e.ops.ar import make_G_matrix
-from cnmf_e.ops.lowrank import kmeans_pp, sparse_nmf_init
-from cnmf_e.ops.morphology import (search_locations_ellipse,
-                                   threshold_components)
-from cnmf_e.utils.simulate import simulate_movie
+from cnmf_e_tpu.config import CNMFEParams, SpatialParams
+from cnmf_e_tpu.models.merge import merge_pairs
+from cnmf_e_tpu.models.qc import order_neurons
+from cnmf_e_tpu.models.state import empty_state
+from cnmf_e_tpu.ops.ar import make_G_matrix
+from cnmf_e_tpu.ops.lowrank import kmeans_pp, sparse_nmf_init
+from cnmf_e_tpu.ops.morphology import (search_locations_ellipse,
+                                       threshold_components)
+from cnmf_e_tpu.utils.simulate import simulate_movie
 
 
 def test_make_G_matrix():
@@ -93,7 +94,7 @@ def test_order_neurons_keys():
 def test_fast_median_matches_order_statistic(rng):
     """fast_median converges to the lower-middle order statistic."""
     import jax.numpy as jnp
-    from cnmf_e.ops.stats import fast_median
+    from cnmf_e_tpu.ops.stats import fast_median
     for shape, ax in [((19, 201), -1), ((16, 200), -1), ((60, 7, 5), 0)]:
         x = (rng.standard_normal(shape) * rng.uniform(0.1, 50)
              ).astype(np.float32)
@@ -105,7 +106,7 @@ def test_fast_median_matches_order_statistic(rng):
 
 def test_submedian_mean_matches_numpy(rng):
     import jax.numpy as jnp
-    from cnmf_e.ops.stats import submedian_mean
+    from cnmf_e_tpu.ops.stats import submedian_mean
     x = (rng.standard_normal((12, 301)) * 3 + 1).astype(np.float32)
     med = np.sort(x, -1)[:, 150]
     ref = np.array([x[i][x[i] < med[i]].mean() for i in range(12)])
@@ -113,8 +114,34 @@ def test_submedian_mean_matches_numpy(rng):
     assert np.abs(got - ref).max() < 5e-3 * (np.abs(ref).max() + 1)
 
 
+@pytest.mark.parametrize("n", [300, 301])
+def test_submedian_mean_is_the_reference_set(rng, n):
+    """Both parities select exactly the reference's x < median(x)."""
+    import jax.numpy as jnp
+    from cnmf_e_tpu.ops.stats import submedian_mean
+    x = (rng.standard_normal((12, n)) * 3 + 1).astype(np.float32)
+    ref = np.array([r[r < np.median(r)].mean() for r in x.astype(np.float64)])
+    got = np.asarray(submedian_mean(jnp.asarray(x)))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [2000, 2001])
+def test_submedian_mean_is_stable_under_last_bit_changes(rng, n):
+    """On calcium-like traces (a small noise floor under sparse large
+    transients, where the bisection stops short of the middle sample) a
+    1e-6 relative change of x moves the baseline by rounding only."""
+    import jax.numpy as jnp
+    from cnmf_e_tpu.ops.stats import submedian_mean
+    x = (np.abs(rng.standard_normal((64, n))) * 0.01
+         + (rng.random((64, n)) < 0.02) * 10).astype(np.float32)
+    p = (x * (1 + 1e-6 * rng.standard_normal(x.shape))).astype(np.float32)
+    a = np.asarray(submedian_mean(jnp.asarray(x)))
+    b = np.asarray(submedian_mean(jnp.asarray(p)))
+    assert np.abs(a - b).max() < 1e-5 * np.abs(a).max()
+
+
 def test_fast_median_masked_matches_numpy(rng):
-    from cnmf_e.ops.stats import fast_median_masked
+    from cnmf_e_tpu.ops.stats import fast_median_masked
     x = rng.standard_normal((40, 101)).astype(np.float32) * 3.0
     mask = rng.random(101) < 0.4
     out = np.asarray(fast_median_masked(jnp.asarray(x),

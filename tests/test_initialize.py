@@ -1,10 +1,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e.config import CNMFEParams, InitParams
-from cnmf_e.models.initialize import extract_ac_batch, initialize_greedy
-from cnmf_e.utils.simulate import simulate_movie
-from cnmf_e.utils.metrics import detection_f1, trace_corr
+from cnmf_e_tpu.config import CNMFEParams, InitParams
+from cnmf_e_tpu.models.initialize import extract_ac_batch, initialize_greedy
+from cnmf_e_tpu.utils.simulate import simulate_movie
+from cnmf_e_tpu.utils.metrics import detection_f1, trace_corr
 
 
 def test_extract_ac_recovers_single_neuron(rng):

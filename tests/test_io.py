@@ -4,11 +4,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from cnmf_e.io.export import load_results, save_results, save_results_mat
-from cnmf_e.io.movie import load_movie, probe_movie
-from cnmf_e.io.store import distribute_movie
-from cnmf_e.io.tiff import probe_tiff, read_tiff, write_tiff
-from cnmf_e.models.state import empty_state
+from cnmf_e_tpu.io.export import load_results, save_results, save_results_mat
+from cnmf_e_tpu.io.movie import load_movie, probe_movie
+from cnmf_e_tpu.io.store import distribute_movie
+from cnmf_e_tpu.io.tiff import probe_tiff, read_tiff, write_tiff
+from cnmf_e_tpu.models.state import empty_state
 
 
 def test_tiff_roundtrip(tmp_path, rng):
@@ -78,7 +78,7 @@ def test_export_roundtrip(tmp_path):
 
 
 def test_avi_roundtrip(tmp_path, rng):
-    from cnmf_e.io.avi import read_avi, write_avi
+    from cnmf_e_tpu.io.avi import read_avi, write_avi
     movie = (rng.random((5, 24, 31)) * 255).astype(np.uint8)
     p = str(tmp_path / "m.avi")
     write_avi(p, movie)
@@ -232,7 +232,7 @@ def _write_tiff_compressed(path, movie, comp, strips_per_frame=2,
 def test_tiff_compressed_roundtrip(tmp_path):
     """LZW / Deflate / PackBits + multi-strip + predictor fixtures decode
     exactly (smod_bigread2.m reads all of these)."""
-    from cnmf_e.io.tiff import read_tiff
+    from cnmf_e_tpu.io.tiff import read_tiff
     rng = np.random.default_rng(5)
     movie = (rng.integers(0, 4000, (4, 30, 17))).astype(np.uint16)
     for comp in (5, 8, 32773):
@@ -247,7 +247,7 @@ def test_tiff_compressed_roundtrip(tmp_path):
 
 
 def test_tiff_multistrip_uncompressed(tmp_path):
-    from cnmf_e.io.tiff import read_tiff
+    from cnmf_e_tpu.io.tiff import read_tiff
     rng = np.random.default_rng(6)
     movie = rng.standard_normal((3, 25, 12)).astype(np.float32)
     p = str(tmp_path / "ms.tif")
@@ -256,7 +256,7 @@ def test_tiff_multistrip_uncompressed(tmp_path):
 
 
 def test_bigtiff_write_read_roundtrip(tmp_path):
-    from cnmf_e.io.tiff import probe_tiff, read_tiff, write_tiff
+    from cnmf_e_tpu.io.tiff import probe_tiff, read_tiff, write_tiff
     rng = np.random.default_rng(7)
     movie = rng.standard_normal((5, 16, 20)).astype(np.float32)
     p = str(tmp_path / "big.tif")
@@ -275,7 +275,7 @@ def test_mjpeg_avi_decode(tmp_path):
     """MJPEG AVI (cv2-encoded fixture) decodes via the per-chunk JPEG path
     with random access (smod_bigread2.m VideoReader role)."""
     cv2 = pytest.importorskip("cv2")
-    from cnmf_e.io.avi import probe_avi, read_avi
+    from cnmf_e_tpu.io.avi import probe_avi, read_avi
     rng = np.random.default_rng(8)
     H, W, T = 48, 64, 6
     # smooth movie so JPEG loss stays small

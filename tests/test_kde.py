@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from cnmf_e.ops.kde import kde_botev, mode_baseline
+from cnmf_e_tpu.ops.kde import kde_botev, mode_baseline
 
 
 def test_kde_gaussian_recovers_density():

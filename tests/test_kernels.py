@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cnmf_e.ops.kernels import PALLAS, XLA, choose, hals_layout
+from cnmf_e_tpu.ops.kernels import PALLAS, XLA, choose, hals_layout
 
 
 @pytest.mark.parametrize("op", ["hals", "oasis"])
@@ -85,8 +85,8 @@ def _verify_triton(fn, *args):
 
 @pytest.mark.parametrize("relu,schedule", [(True, False), (False, True)])
 def test_hals_kernel_lowers_for_cuda(relu, schedule):
-    from cnmf_e.ops.coloring import class_step_schedule
-    from cnmf_e.ops.pallas_hals import hals_sweeps_rows_pallas
+    from cnmf_e_tpu.ops.coloring import class_step_schedule
+    from cnmf_e_tpu.ops.pallas_hals import hals_sweeps_rows_pallas
     K, d = 40, 256
     sched = (class_step_schedule(jnp.zeros(K, jnp.int32), block=16)
              if schedule else None)
@@ -98,18 +98,9 @@ def test_hals_kernel_lowers_for_cuda(relu, schedule):
 
 @pytest.mark.parametrize("lanes", [1, 16])
 def test_oasis_kernel_lowers_for_cuda(lanes):
-    from cnmf_e.ops.pallas_oasis import oasis_ar1_pallas
+    from cnmf_e_tpu.ops.pallas_oasis import oasis_ar1_pallas
     K, T = 8, 100
     fn = functools.partial(oasis_ar1_pallas, lanes=lanes)
     z = jnp.zeros(K)
     assert _verify_triton(fn, jnp.ones((K, T)), jnp.full((K,), 0.9),
                           z, z) == 1
-
-
-@pytest.mark.parametrize("K,want", [(1, 1), (192, 1), (8192, 1),
-                                    (8193, 2), (100_000, 16),
-                                    (10**7, 32)])
-def test_oasis_default_lanes(K, want):
-    """One trace per program until K outgrows the resident programs."""
-    from cnmf_e.ops.pallas_oasis import default_lanes
-    assert default_lanes(K) == want

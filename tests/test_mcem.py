@@ -5,8 +5,8 @@ temporal method set {project, constrained_foopsi, MCEM, MCMC})."""
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e.config import DeconvParams
-from cnmf_e.ops.oasis import deconvolve
+from cnmf_e_tpu.config import DeconvParams
+from cnmf_e_tpu.ops.oasis import deconvolve
 
 
 def _ar1_traces(rng, N, T, g_true, sn, rate=0.03):
@@ -25,7 +25,7 @@ def test_mcem_ar1_improves_bad_g(rng):
     y, C, _ = _ar1_traces(rng, 4, 500, g_true, sn=0.15)
     g_bad = jnp.full((4, 1), 0.7, jnp.float32)
 
-    from cnmf_e.ops.mcem import mcem_foopsi
+    from cnmf_e_tpu.ops.mcem import mcem_foopsi
     p = DeconvParams(model="ar1", method="mcem", optimize_b=False)
     res = mcem_foopsi(jnp.asarray(y), p, g=g_bad, n_em=8)
     g_out = np.asarray(res.g)[:, 0]
@@ -41,7 +41,7 @@ def test_mcem_ar1_improves_bad_g(rng):
 
 def test_mcem_ar2_runs_and_keeps_order(rng):
     """AR(2): rise < decay invariant holds and the result reconstructs."""
-    from cnmf_e.ops.ar import ar2exp
+    from cnmf_e_tpu.ops.ar import ar2exp
     d_true, r_true = 0.9, 0.3
     g1, g2 = d_true + r_true, -d_true * r_true
     S = (rng.random((3, 400)) < 0.03) * rng.uniform(0.5, 1.5, (3, 400))

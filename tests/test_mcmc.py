@@ -2,7 +2,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cnmf_e.ops.mcmc import mcmc_spikes
+from cnmf_e_tpu.ops.mcmc import mcmc_spikes
 from tests.oracles import ar1_trace
 
 
@@ -55,7 +55,7 @@ def _auc(score, truth):
 def test_mcmc_auc_beats_foopsi(rng):
     """Posterior spike prob should rank true spike bins at least as well as
     the foopsi point estimate (VERDICT item 9 done-criterion)."""
-    from cnmf_e.ops.oasis import foopsi_ar1
+    from cnmf_e_tpu.ops.oasis import foopsi_ar1
     from tests.oracles import ar1_trace
 
     g, sn, T = 0.9, 0.25, 600
@@ -91,7 +91,7 @@ def test_mcmc_time_constant_recovery(rng):
 
 
 def test_mcmc_adaptive_converges(rng):
-    from cnmf_e.ops.mcmc import mcmc_spikes_adaptive
+    from cnmf_e_tpu.ops.mcmc import mcmc_spikes_adaptive
 
     g, sn, T = 0.9, 0.15, 300
     y, c, s_true = ar1_trace(rng, T, g=g, sn=sn, rate=0.02, amp=2.0)
@@ -108,7 +108,7 @@ def test_mcmc_adaptive_converges(rng):
 
 def test_mcmc_ar2_kernel(rng):
     """AR(2) traces: sampler runs with p=2 kernels and finds spikes."""
-    from cnmf_e.ops.ar import exp2ar
+    from cnmf_e_tpu.ops.ar import exp2ar
     d, r = 0.9, 0.5
     g2 = np.asarray(exp2ar(jnp.asarray([d]), jnp.asarray([r])))[0]
     T = 400
@@ -137,7 +137,7 @@ def test_mcmc_grid_time_bias_below_one_frame(rng):
     (cont_ca_sampler.m samples continuous times; for AR(1)/fast-rise
     AR(2) kernels the offset is an exact likelihood degeneracy). Pins
     |timing error| < 1 frame and its (1 - phi) structure."""
-    from cnmf_e.ops.ar import exp2ar
+    from cnmf_e_tpu.ops.ar import exp2ar
 
     D, R = 0.92, 0.4
 

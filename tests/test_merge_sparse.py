@@ -16,11 +16,11 @@ default is therefore ``method_dist='max'``.
 import jax.numpy as jnp
 import numpy as np
 
-from cnmf_e.config import CNMFEParams, MergeParams
-from cnmf_e.models.merge import (merge_candidates_dist_corr,
-                                 merge_candidates_dist_only,
-                                 merge_neurons, merge_neurons_seq)
-from cnmf_e.models.state import empty_state
+from cnmf_e_tpu.config import CNMFEParams, MergeParams
+from cnmf_e_tpu.models.merge import (merge_candidates_dist_corr,
+                                     merge_candidates_dist_only,
+                                     merge_neurons, merge_neurons_seq)
+from cnmf_e_tpu.models.state import empty_state
 
 
 def _contaminated_pair(seed=0, H=28, W=28, T=2000, spike_rate=0.01):

@@ -2,13 +2,13 @@ import numpy as np
 import jax.numpy as jnp
 import scipy.ndimage
 
-from cnmf_e.native import (connected_components,
-                           connected_components_edges)
-from cnmf_e.ops.hals import hals_nmf, hals_spatial, hals_temporal
-from cnmf_e.ops.morphology import (circular_constraint,
-                                   connectivity_constraint, dilate,
-                                   label_from_seed,
-                                   search_locations_dilate)
+from cnmf_e_tpu.native import (connected_components,
+                               connected_components_edges)
+from cnmf_e_tpu.ops.hals import hals_nmf, hals_spatial, hals_temporal
+from cnmf_e_tpu.ops.morphology import (circular_constraint,
+                                       connectivity_constraint, dilate,
+                                       label_from_seed,
+                                       search_locations_dilate)
 
 
 def test_native_cc_matches_scipy(rng):
@@ -129,7 +129,7 @@ def test_hals_spatial_blocked_gs_matches_per_neuron(rng):
     """Every block size of the blocked Gauss-Seidel sweep matches an
     independent float64 numpy oracle of the per-neuron update
     (HALS_spatial.m:34-46), incl. non-dividing block sizes."""
-    from cnmf_e.ops.hals import hals_spatial_sweeps
+    from cnmf_e_tpu.ops.hals import hals_spatial_sweeps
 
     d, K, T = 400, 37, 150
     Y = rng.standard_normal((d, T)).astype(np.float32)

@@ -11,11 +11,11 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-from cnmf_e.io.store import distribute_movie
-from cnmf_e.parallel.mesh import make_mesh
-from cnmf_e.parallel.multihost import (frame_range_for_process,
-                                       init_distributed,
-                                       load_sharded_movie)
+from cnmf_e_tpu.io.store import distribute_movie
+from cnmf_e_tpu.parallel.mesh import make_mesh
+from cnmf_e_tpu.parallel.multihost import (frame_range_for_process,
+                                           init_distributed,
+                                           load_sharded_movie)
 
 
 @pytest.fixture
@@ -98,8 +98,8 @@ def test_two_process_distributed_ingest(tmp_path):
 def test_sharded_movie_feeds_update_step(store):
     """The ingested array drives the distributed step directly."""
     Y, st = store
-    from cnmf_e.ops.ring import ring_offsets
-    from cnmf_e.parallel.step import StepState, make_update_step
+    from cnmf_e_tpu.ops.ring import ring_offsets
+    from cnmf_e_tpu.parallel.step import StepState, make_update_step
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     mesh = make_mesh(n_patch=4, n_frame=2)

@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e.ops.noise import (estimate_baseline_noise, estimate_noise,
-                              noise_psd, noise_std)
+from cnmf_e_tpu.ops.noise import (estimate_baseline_noise, estimate_noise,
+                                  noise_psd, noise_std)
 
 
 def test_noise_psd_white_noise(rng):
@@ -51,7 +51,7 @@ def test_estimate_noise_dispatch(rng):
 def test_noise_psd_frames_matches_noise_psd(rng):
     """The band-restricted DFT-matmul form (noise_psd_frames, the movie
     path) must equal the rfft Welch form exactly."""
-    from cnmf_e.ops.noise import noise_psd, noise_psd_frames
+    from cnmf_e_tpu.ops.noise import noise_psd, noise_psd_frames
     for T, shape in [(2000, (7, 9)), (500, (64,)), (300, (4, 5))]:
         Y = jnp.asarray(rng.standard_normal((T,) + shape)
                         .astype(np.float32) * 0.3 + 1.0)

@@ -1,10 +1,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e.config import DeconvParams
-from cnmf_e.ops.ar import ar_kernel
-from cnmf_e.ops.oasis import deconvolve
-from cnmf_e.ops.onnls import onnls
+from cnmf_e_tpu.config import DeconvParams
+from cnmf_e_tpu.ops.ar import ar_kernel
+from cnmf_e_tpu.ops.oasis import deconvolve
+from cnmf_e_tpu.ops.onnls import onnls
 
 
 def _ar2_trace(rng, T, d, r, rate=0.02, sn=0.1):
@@ -53,7 +53,7 @@ def test_deconvolve_ar2_dispatch(rng):
     assert np.all(np.isfinite(np.asarray(out.c)))
 
 def test_deconvolve_kernel_model(rng):
-    from cnmf_e.ops.ar import ar_kernel
+    from cnmf_e_tpu.ops.ar import ar_kernel
     d, r = 0.9, 0.45
     y, c_true, _ = _ar2_trace(rng, 500, d, r, sn=0.1, rate=0.03)
     # hand the true impulse response as an arbitrary kernel vector
@@ -69,7 +69,7 @@ def test_deconvolve_kernel_model(rng):
 def test_onnls_kernel_non_exponential_recovery(rng):
     """A gamma-shaped kernel no difference-of-exponentials matches well:
     the exact arbitrary-kernel solver must still recover the spikes."""
-    from cnmf_e.ops.onnls import causal_conv, onnls_kernel
+    from cnmf_e_tpu.ops.onnls import causal_conv, onnls_kernel
     T, Lh = 600, 60
     t = np.arange(Lh, dtype=np.float64)
     h = (t ** 2) * np.exp(-t / 6.0)          # delayed-rise gamma shape
@@ -89,7 +89,7 @@ def test_onnls_kernel_non_exponential_recovery(rng):
 def test_onnls_kernel_window_stitching_matches_global(rng):
     """Committed-spike subtraction across windows: windowed solution on a
     long trace matches a single-window (win >= T) solve."""
-    from cnmf_e.ops.onnls import onnls_kernel
+    from cnmf_e_tpu.ops.onnls import onnls_kernel
     T, Lh = 300, 40
     t = np.arange(Lh, dtype=np.float64)
     h = np.exp(-t / 8.0) - np.exp(-t / 2.0)
@@ -106,7 +106,7 @@ def test_onnls_kernel_window_stitching_matches_global(rng):
 
 
 def test_causal_conv_matches_numpy(rng):
-    from cnmf_e.ops.onnls import causal_conv
+    from cnmf_e_tpu.ops.onnls import causal_conv
     s = rng.random((2, 50)).astype(np.float32)
     h = rng.random(7).astype(np.float32)
     out = causal_conv(jnp.asarray(s), jnp.asarray(h))
@@ -117,7 +117,7 @@ def test_causal_conv_matches_numpy(rng):
 def test_constrained_ar2_hits_noise_budget(rng):
     """Lambda bisection on the windowed solver reaches RSS = sn^2 T within
     a few percent (constrained_oasisAR2.m:1-60 semantics)."""
-    from cnmf_e.ops.onnls import constrained_onnls
+    from cnmf_e_tpu.ops.onnls import constrained_onnls
     d, r = 0.9, 0.45
     T = 600
     ys, sns = [], []
@@ -125,7 +125,7 @@ def test_constrained_ar2_hits_noise_budget(rng):
         y, _, _ = _ar2_trace(rng, T, d, r, sn=0.12, rate=0.03)
         ys.append(y)
     ys = np.stack(ys).astype(np.float32)
-    from cnmf_e.ops.noise import estimate_noise
+    from cnmf_e_tpu.ops.noise import estimate_noise
     sn = estimate_noise(jnp.asarray(ys), "psd")
     c, s, b, lam = constrained_onnls(
         jnp.asarray(ys), jnp.full((3,), d, jnp.float32),
@@ -140,12 +140,12 @@ def test_constrained_ar2_hits_noise_budget(rng):
 def test_thresholded_ar2_approaches_noise_budget(rng):
     """smin bisection: RSS lands at/below the noise budget and spikes below
     the final floor are zero (thresholded_oasisAR2.m:79-140 semantics)."""
-    from cnmf_e.ops.onnls import thresholded_onnls
+    from cnmf_e_tpu.ops.onnls import thresholded_onnls
     d, r = 0.9, 0.45
     T = 600
     y, _, _ = _ar2_trace(rng, T, d, r, sn=0.1, rate=0.04)
     y = y[None].astype(np.float32)
-    from cnmf_e.ops.noise import estimate_noise
+    from cnmf_e_tpu.ops.noise import estimate_noise
     sn = estimate_noise(jnp.asarray(y), "psd")
     c, s, b, smin = thresholded_onnls(
         jnp.asarray(y), jnp.asarray([d], jnp.float32),
@@ -168,7 +168,7 @@ def test_deconvolve_constrained_ar2_dispatch(rng):
                      DeconvParams(model="ar2", method="constrained",
                                   optimize_b=False))
     T = ys.shape[-1]
-    from cnmf_e.ops.noise import estimate_noise
+    from cnmf_e_tpu.ops.noise import estimate_noise
     sn = np.asarray(estimate_noise(jnp.asarray(ys), "psd"))
     rss = np.sum((ys - np.asarray(out.c)) ** 2, axis=-1)
     # the solution respects the noise budget (lambda search engaged)
@@ -180,7 +180,7 @@ def test_optimize_exp2_recovers_kernel(rng):
     """Golden-section (d, r) search recovers the true kernel parameters
     from traces generated with a different initialization
     (update_kernel_exp2.m / update_tau.m role)."""
-    from cnmf_e.ops.onnls import optimize_exp2
+    from cnmf_e_tpu.ops.onnls import optimize_exp2
     d_true, r_true = 0.92, 0.35
     ys = np.stack([_ar2_trace(rng, 500, d_true, r_true, sn=0.05,
                               rate=0.03)[0] for _ in range(2)])

@@ -25,9 +25,9 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 minimize = pytest.importorskip("scipy.optimize").minimize
 
-from cnmf_e.ops.ar import exp2ar
-from cnmf_e.ops.onnls import (constrained_onnls, onnls,
-                              thresholded_onnls)
+from cnmf_e_tpu.ops.ar import exp2ar
+from cnmf_e_tpu.ops.onnls import (constrained_onnls, onnls,
+                                  thresholded_onnls)
 
 D, R = 0.95, 0.55          # decay / rise factors (tau_d ~ 20, tau_r ~ 1.7)
 
@@ -145,7 +145,7 @@ def test_constrained_ar2_matches_oracle_dual():
 def test_thresholded_ar2_matches_oracle_search():
     """Thresholded AR(2): the same smin-scaling search run on the oracle's
     unpenalized solution must land the same floor and reconstruction."""
-    from cnmf_e.ops.ar import choose_smin
+    from cnmf_e_tpu.ops.ar import choose_smin
 
     sn = 0.12
     y, _, _ = _traces(seed=11, sn=sn)

@@ -25,11 +25,11 @@ import jax.numpy as jnp
 import pytest
 import scipy.ndimage as ndi
 
-from cnmf_e.config import CNMFEParams, InitParams
-from cnmf_e.models.initialize import initialize_greedy
-from cnmf_e.ops.filters import gaussian_psf
-from cnmf_e.utils.metrics import detection_f1, trace_corr
-from cnmf_e.utils.simulate import simulate_movie
+from cnmf_e_tpu.config import CNMFEParams, InitParams
+from cnmf_e_tpu.models.initialize import initialize_greedy
+from cnmf_e_tpu.ops.filters import gaussian_psf
+from cnmf_e_tpu.utils.metrics import detection_f1, trace_corr
+from cnmf_e_tpu.utils.simulate import simulate_movie
 
 
 # --------------------------------------------------------------------- #

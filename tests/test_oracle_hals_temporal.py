@@ -22,8 +22,8 @@ Scope notes (documented deviations, both asserted below):
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e.ops.hals import hals_temporal_sweeps
-from cnmf_e.ops.stats import submedian_mean
+from cnmf_e_tpu.ops.hals import hals_temporal_sweeps
+from cnmf_e_tpu.ops.stats import submedian_mean
 
 
 def hals_temporal_oracle(U, V, C, n_iter, subtract_min=False):

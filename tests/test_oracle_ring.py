@@ -13,8 +13,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cnmf_e.ops.ring import (RingWeights, apply_ring, fit_ring_model,
-                             fit_ring_weights, ring_offsets)
+from cnmf_e_tpu.ops.ring import (RingWeights, apply_ring, fit_ring_model,
+                                 fit_ring_weights, ring_offsets)
 
 
 def _nhood_offsets_oracle(radius):

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from cnmf_e.models.pairing import (classify_components, pair_neurons,
-                                   update_order)
+from cnmf_e_tpu.models.pairing import (classify_components, pair_neurons,
+                                       update_order)
 
 
 def _footprints(centers, H=24, W=24, sig=1.5):
@@ -69,7 +69,7 @@ def test_update_order_groups_are_independent_and_complete():
 
 def _toy_state(K=6, H=24, W=24, T=120, seed=3):
     import jax.numpy as jnp
-    from cnmf_e.models.state import empty_state
+    from cnmf_e_tpu.models.state import empty_state
     rng = np.random.default_rng(seed)
     st = empty_state(K, H, W, T)
     A = np.zeros((K, H, W), np.float32)
@@ -92,9 +92,9 @@ def test_merge_decay_time_gate():
     """max_decay_diff excludes pairs with different decay constants
     (merge_neurons_dist_corr.m:74-81)."""
     import jax.numpy as jnp
-    from cnmf_e.config import CNMFEParams, MergeParams
-    from cnmf_e.models.merge import (decay_times,
-                                     merge_candidates_dist_corr)
+    from cnmf_e_tpu.config import CNMFEParams, MergeParams
+    from cnmf_e_tpu.models.merge import (decay_times,
+                                         merge_candidates_dist_corr)
     st = _toy_state(K=2, T=200)
     # co-located, perfectly correlated traces, very different decay
     C = np.tile(np.sin(np.linspace(0, 20, 200)).astype(np.float32) + 1.5,
@@ -114,7 +114,7 @@ def test_merge_decay_time_gate():
 def test_order_neurons_all_keys():
     """Every orderROIs key returns a valid permutation; directional keys
     order by the documented statistic (Sources2D.m:573-653)."""
-    from cnmf_e.models.qc import apply_order, order_neurons
+    from cnmf_e_tpu.models.qc import apply_order, order_neurons
     st = _toy_state()
     K = st.K_max
     for key in ("snr", "pnr", "energy", "mean", "decay_time",
@@ -135,8 +135,8 @@ def test_classify_wired_into_remove_false_positives():
     the mask are removed by the QC pass."""
     import dataclasses
     import jax.numpy as jnp
-    from cnmf_e.config import CNMFEParams, QCParams
-    from cnmf_e.models.qc import remove_false_positives
+    from cnmf_e_tpu.config import CNMFEParams, QCParams
+    from cnmf_e_tpu.models.qc import remove_false_positives
     st = _toy_state(K=2, T=200)
     H, W = st.shape_hw
     # neuron 0 sits at (6, 6): mask covers it; neuron 1 at (6, 18): off-mask

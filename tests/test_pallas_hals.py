@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cnmf_e.ops.hals import hals_spatial_sweeps, hals_temporal_sweeps
-from cnmf_e.ops.pallas_hals import hals_sweeps_rows_pallas
+from cnmf_e_tpu.ops.hals import hals_spatial_sweeps, hals_temporal_sweeps
+from cnmf_e_tpu.ops.pallas_hals import hals_sweeps_rows_pallas
 
 
 def _problem(seed=0, d=400, K=24, T=150):
@@ -139,7 +139,7 @@ def test_class_schedule_kernel_matches_sequential():
     """The class-aligned step schedule (block-row vectorized steps with
     dynamic row starts + positional end-gating) must equal the
     sequential sweep in colored order."""
-    from cnmf_e.ops.coloring import class_step_schedule
+    from cnmf_e_tpu.ops.coloring import class_step_schedule
 
     U, V, X, colors = _clustered_problem()
     K = X.shape[0]
@@ -166,7 +166,7 @@ def test_class_schedule_kernel_matches_sequential():
 def test_class_schedule_respects_gauss_seidel_order_across_classes():
     """Coupled rows (different classes) must still see each other's
     updates in order — pinned against the float64 sequential oracle."""
-    from cnmf_e.ops.coloring import class_step_schedule
+    from cnmf_e_tpu.ops.coloring import class_step_schedule
 
     U, V, X, colors = _clustered_problem(seed=9, n_classes=4)
     K = X.shape[0]
@@ -185,7 +185,7 @@ def test_class_schedule_spatial_masked_matches_sequential():
     update to its own pixels, so the vectorized class step is exact even
     though the trace Gram is dense (determine_search_location.m +
     update_order.m semantics)."""
-    from cnmf_e.ops.coloring import class_step_schedule
+    from cnmf_e_tpu.ops.coloring import class_step_schedule
 
     rng = np.random.default_rng(11)
     d, K, n_classes = 512, 30, 3
@@ -223,7 +223,7 @@ def test_class_schedule_spatial_masked_matches_sequential():
 def test_schedule_overflow_falls_back_to_blocks():
     """More classes than schedule capacity: the fallback block grid with
     sequential (non-free) steps still produces the exact result."""
-    from cnmf_e.ops.coloring import class_step_schedule
+    from cnmf_e_tpu.ops.coloring import class_step_schedule
 
     U, V, X, colors = _clustered_problem(seed=5, K=24, n_classes=3)
     K = X.shape[0]

@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cnmf_e.ops.oasis import _oasis_ar1_single
-from cnmf_e.ops.pallas_oasis import oasis_ar1_pallas
+from cnmf_e_tpu.ops.oasis import _oasis_ar1_single
+from cnmf_e_tpu.ops.pallas_oasis import oasis_ar1_pallas
 
 
 def _ar1_traces(K, T, seed, rate=0.05, sn=0.2):
@@ -70,8 +70,8 @@ class TestLongTraces:
                                           (0.0, 0.3), (0.3, 0.2)])
     def test_matches_sample_level(self, lam, smin):
         """The kernel is the sample-level algorithm for every lam/smin —
-        including smin > 0, where merge order matters and the XLA
-        divide-and-conquer path differs."""
+        including smin > 0, where merge order matters and a chunked
+        solve would differ."""
         K, T = 5, 300
         y, g = _ar1_traces(K, T, seed=hash(("long", lam, smin)) % 2**31)
         lam_v = jnp.full((K,), lam, jnp.float32)
@@ -122,11 +122,30 @@ def test_lane_width_invariant(lanes):
 
 def test_kernel_agrees_with_xla_form_when_merging_is_confluent():
     """With smin = 0 pool merging is confluent, so the kernel agrees with
-    the XLA divide-and-conquer form the CPU runs."""
-    from cnmf_e.ops.oasis import oasis_ar1
+    the XLA form's divide-and-conquer path."""
+    from cnmf_e_tpu.ops.oasis import oasis_ar1
     K, T = 6, 150
     y, g = _ar1_traces(K, T, seed=23)
     c_x, _ = oasis_ar1(y, g, 0.1, 0.0, impl="xla")
     c_pl, _ = oasis_ar1_pallas(y, g, jnp.full((K,), 0.1), jnp.zeros(K),
                                interpret=True)
     np.testing.assert_allclose(c_pl, c_x, atol=1e-4)
+
+
+@pytest.mark.parametrize("smin", [0.3, 0.6])
+@pytest.mark.parametrize("traced", [False, True])
+def test_xla_form_matches_kernel_with_spike_floor(smin, traced):
+    """With smin > 0 merge order matters, so the XLA form runs the
+    sample-level loop and agrees with the kernel (a chunked solve would
+    not). ``traced`` passes smin as an array, which picks the loop on
+    device."""
+    from cnmf_e_tpu.ops.oasis import oasis_ar1
+    K, T = 6, 300
+    y, g = _ar1_traces(K, T, seed=29)
+    z = jnp.zeros((K,), jnp.float32)
+    sm = jnp.full((K,), smin, jnp.float32)
+    c_x, s_x = oasis_ar1(y, g, 0.0, sm if traced else smin, chunk=64,
+                         impl="xla")
+    c_pl, s_pl = oasis_ar1_pallas(y, g, z, sm, interpret=True)
+    np.testing.assert_allclose(c_x, c_pl, atol=1e-4)
+    np.testing.assert_allclose(s_x, s_pl, atol=1e-4)

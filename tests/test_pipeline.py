@@ -2,11 +2,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cnmf_e.config import (BackgroundParams, CNMFEParams, InitParams,
-                           MergeParams)
-from cnmf_e.models.pipeline import CNMFE
-from cnmf_e.utils.metrics import detection_f1, rss, trace_corr
-from cnmf_e.utils.simulate import simulate_movie
+from cnmf_e_tpu.config import (BackgroundParams, CNMFEParams, InitParams,
+                               MergeParams)
+from cnmf_e_tpu.models.pipeline import CNMFE
+from cnmf_e_tpu.utils.metrics import detection_f1, rss, trace_corr
+from cnmf_e_tpu.utils.simulate import simulate_movie
 
 
 def _params_1p():

@@ -6,9 +6,9 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e.models.qc import delete_neurons
-from cnmf_e.models.state import compact, empty_state
-from cnmf_e.utils.report import generate_html_report
+from cnmf_e_tpu.models.qc import delete_neurons
+from cnmf_e_tpu.models.state import compact, empty_state
+from cnmf_e_tpu.utils.report import generate_html_report
 
 
 def _toy(K=4, H=32, W=32, T=120, seed=0):
@@ -66,8 +66,8 @@ def test_decisions_roundtrip_delete_and_merge(tmp_path):
     """decisions.json with both a merge pair and a rejection applies the
     way run.py --apply-decisions does: merge first, then delete, then
     compact."""
-    from cnmf_e.config import CNMFEParams
-    from cnmf_e.models.merge import merge_pairs
+    from cnmf_e_tpu.config import CNMFEParams
+    from cnmf_e_tpu.models.merge import merge_pairs
 
     rng = np.random.default_rng(3)
     A, C = _toy(K=5)

@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from cnmf_e.ops.ring import RingWeights, fit_ring_weights, ring_offsets
-from cnmf_e.parallel.mesh import make_mesh
-from cnmf_e.parallel.step import StepState, make_update_step
+from cnmf_e_tpu.ops.ring import RingWeights, fit_ring_weights, ring_offsets
+from cnmf_e_tpu.parallel.mesh import make_mesh
+from cnmf_e_tpu.parallel.step import StepState, make_update_step
 
 
 def _mkstate(K, H, W, T, R, rng):
@@ -90,6 +90,32 @@ def test_colored_step_shard_count_invariance(rng):
                                atol=2e-3)
 
 
+@pytest.mark.parametrize("n_patch,n_frame", [(4, 1), (2, 2), (1, 4)])
+def test_chained_step_matches_one_device_on_planted_neurons(n_patch, n_frame):
+    """Ten chained colored iterations with two deconvolutions on a mesh
+    stay within 1e-3 floored max-rel of one device in A, C_raw and C —
+    the four-card gate of ``chip_smoke.py --multi``, on virtual devices."""
+    from cnmf_e_tpu.utils.simulate import update_step_problem
+    H, W, T, K = 64, 64, 400, 16
+    Y, st = update_step_problem(H, W, T, K=K, radius=13, planted=True)
+    kw = dict(radius=13, n_hals=1, chain=10, deconv_every=5, colored=True)
+    ref = make_update_step(None, H, W, T, **kw)(Y, st)
+    mesh = make_mesh(n_patch=n_patch, n_frame=n_frame)
+    put = lambda x, spec: jax.device_put(x, NamedSharding(mesh, spec))
+    sts = StepState(
+        A=put(st.A, P(None, "patch", None)), C=put(st.C, P(None, "frame")),
+        C_raw=put(st.C_raw, P(None, "frame")), S=put(st.S, P(None, "frame")),
+        g=put(st.g, P()), b0=put(st.b0, P("patch", None)),
+        ring_w=put(st.ring_w, P("patch", None)),
+        ring_w0=put(st.ring_w0, P("patch")))
+    out = make_update_step(mesh, H, W, T, **kw)(
+        put(Y, P("frame", "patch", None)), sts)
+    for f in ("A", "C_raw", "C"):
+        x, r = np.asarray(getattr(out, f)), np.asarray(getattr(ref, f))
+        scale = np.maximum(np.abs(r), 0.05 * np.abs(r).max())
+        assert (np.abs(x - r) / scale).max() <= 1e-3, f
+
+
 def test_ring_fit_compiles_under_mesh(rng):
     """The gather-heavy ring fit must at least compile+run on a sharded
     input (XLA may insert gathers/all-gathers; exactness is what matters)."""
@@ -107,8 +133,8 @@ def test_ring_fit_compiles_under_mesh(rng):
 
 
 def _mini_params():
-    from cnmf_e.config import (BackgroundParams, CNMFEParams,
-                               InitParams, MergeParams)
+    from cnmf_e_tpu.config import (BackgroundParams, CNMFEParams,
+                                   InitParams, MergeParams)
     return CNMFEParams(
         init=InitParams(gSig=2.0, gSiz=6, min_corr=0.7, min_pnr=6.0,
                         max_neurons=16, seeds_per_round=8, max_rounds=3),
@@ -117,7 +143,7 @@ def _mini_params():
 
 
 def _mini_movie():
-    from cnmf_e.utils.simulate import simulate_movie
+    from cnmf_e_tpu.utils.simulate import simulate_movie
     return simulate_movie(seed=11, H=32, W=32, T=256, K=5, gSig=2.0,
                           sn=0.06, bg_strength=0.5, min_dist=9.0,
                           spike_rate=0.05)
@@ -126,8 +152,8 @@ def _mini_movie():
 def test_initialize_greedy_shard_invariance():
     """initComponents under a (4, 2) mesh == single device (footprints and
     traces, not just compile)."""
-    from cnmf_e.models.initialize import initialize_greedy
-    from cnmf_e.parallel.mesh import make_mesh
+    from cnmf_e_tpu.models.initialize import initialize_greedy
+    from cnmf_e_tpu.parallel.mesh import make_mesh
     gt = _mini_movie()
     params = _mini_params()
     st1, _ = initialize_greedy(jnp.asarray(gt.Y), params)
@@ -153,9 +179,9 @@ def test_initialize_greedy_shard_invariance():
 
 def test_update_background_shard_invariance():
     """Ring background refit under the mesh == single device (W and b0)."""
-    from cnmf_e.models.background import update_background
-    from cnmf_e.models.initialize import initialize_greedy
-    from cnmf_e.parallel.mesh import make_mesh
+    from cnmf_e_tpu.models.background import update_background
+    from cnmf_e_tpu.models.initialize import initialize_greedy
+    from cnmf_e_tpu.parallel.mesh import make_mesh
     gt = _mini_movie()
     params = _mini_params()
     st, _ = initialize_greedy(jnp.asarray(gt.Y), params)
@@ -180,8 +206,8 @@ def test_full_fit_shard_invariance():
     """A short CNMFE.fit run on sharded inputs matches the single-device
     run: footprint IoU >= 0.99, trace corr >= 0.999 (the reference's
     parfor/serial equivalence, update_spatial_parallel.m:218-318)."""
-    from cnmf_e.models.pipeline import CNMFE
-    from cnmf_e.parallel.mesh import make_mesh
+    from cnmf_e_tpu.models.pipeline import CNMFE
+    from cnmf_e_tpu.parallel.mesh import make_mesh
     gt = _mini_movie()
     params = _mini_params()
 

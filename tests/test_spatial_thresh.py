@@ -14,9 +14,9 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from cnmf_e.config import CNMFEParams, SpatialParams
-from cnmf_e.models.spatial import update_spatial
-from cnmf_e.models.state import empty_state
+from cnmf_e_tpu.config import CNMFEParams, SpatialParams
+from cnmf_e_tpu.models.spatial import update_spatial
+from cnmf_e_tpu.models.state import empty_state
 
 
 def _make_scene(rng, H=32, W=32, T=400, sn=0.02):

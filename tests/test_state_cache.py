@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cnmf_e.models.state import CNMFEState, compact, empty_state
+from cnmf_e_tpu.models.state import CNMFEState, compact, empty_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -61,7 +61,7 @@ def test_compile_cache_location(env_dir, tmp_path):
     if env_dir:
         want = str(tmp_path / env_dir)
         env["JAX_COMPILATION_CACHE_DIR"] = want
-    code = ("import jax; from cnmf_e.utils.cache import "
+    code = ("import jax; from cnmf_e_tpu.utils.cache import "
             "enable_compilation_cache as e; r = e(); "
             "print(r); print(jax.config.jax_compilation_cache_dir)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

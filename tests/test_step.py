@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cnmf_e.ops.hals import hals_spatial, hals_temporal
-from cnmf_e.ops.noise import noise_psd
-from cnmf_e.ops.oasis import foopsi_ar1
-from cnmf_e.ops.ring import RingWeights, apply_ring, ring_offsets
-from cnmf_e.parallel.step import StepState, make_update_step
+from cnmf_e_tpu.ops.hals import hals_spatial, hals_temporal
+from cnmf_e_tpu.ops.noise import noise_psd
+from cnmf_e_tpu.ops.oasis import foopsi_ar1
+from cnmf_e_tpu.ops.ring import RingWeights, apply_ring, ring_offsets
+from cnmf_e_tpu.parallel.step import StepState, make_update_step
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +57,7 @@ def _explicit_reference(H, W, T, K, radius, Y, st, mask=None, st_bg=None):
     Ad = st.A.reshape(K, H * W).T
     Ad2 = hals_spatial(Yd, Ad, st.C, mask=mask, n_iter=1)
     C_raw, _ = hals_temporal(Yd, Ad2, st.C, n_iter=1)
-    from cnmf_e.ops.stats import submedian_mean
+    from cnmf_e_tpu.ops.stats import submedian_mean
     C_raw = C_raw - submedian_mean(C_raw, axis=-1)[:, None]
     res = foopsi_ar1(C_raw, st.g, smin=-3.0, sn=noise_psd(C_raw),
                      optimize_b=False)
@@ -76,7 +76,7 @@ def test_dense_step_matches_explicit_ysig(problem):
 
 def test_split_projection_iteration_matches_fused(problem):
     """proj + iterate (the amortized pipeline form) == the fused step."""
-    from cnmf_e.parallel.step import (
+    from cnmf_e_tpu.parallel.step import (
         make_bg_projection, make_hals_iteration)
     H, W, T, K, radius, Y, st = problem
     fused = make_update_step(None, H, W, T, radius=radius, n_hals=1)
@@ -100,7 +100,7 @@ def test_split_projection_iteration_matches_fused(problem):
 
 def test_chained_block_matches_sequential_calls(problem):
     """chain=N inside one program == N sequential iterate() dispatches."""
-    from cnmf_e.parallel.step import (
+    from cnmf_e_tpu.parallel.step import (
         make_bg_projection, make_hals_iteration)
     H, W, T, K, radius, Y, st = problem
     proj = make_bg_projection(None, H, W, T, radius=radius)

@@ -2,19 +2,19 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cnmf_e.config import (BackgroundParams, CNMFEParams, InitParams,
-                           MergeParams)
-from cnmf_e.io.store import distribute_movie
-from cnmf_e.models.streaming import fit_streaming
-from cnmf_e.utils.metrics import detection_f1, trace_corr
-from cnmf_e.utils.simulate import simulate_movie
+from cnmf_e_tpu.config import (BackgroundParams, CNMFEParams, InitParams,
+                               MergeParams)
+from cnmf_e_tpu.io.store import distribute_movie
+from cnmf_e_tpu.models.streaming import fit_streaming
+from cnmf_e_tpu.utils.metrics import detection_f1, trace_corr
+from cnmf_e_tpu.utils.simulate import simulate_movie
 
 
 def test_prefetch_blocks_order_and_slicing(tmp_path, rng):
     """The one-block-ahead prefetcher yields every block in order, as
     device arrays, and its slicer path reproduces the strided host reads
     the ring-Bf fit depends on."""
-    from cnmf_e.models.streaming import _prefetch_device_blocks
+    from cnmf_e_tpu.models.streaming import _prefetch_device_blocks
     Y = rng.standard_normal((70, 8, 12)).astype(np.float32)
     src = str(tmp_path / "m.npy")
     np.save(src, Y)
@@ -75,7 +75,7 @@ def test_streaming_gram_hals_matches_inmemory(rng):
     hals_temporal_sweeps) equals the in-memory coordinate descent on the
     same Grams — overlapping neurons get the exact cross-term updates, not
     a diagonal projection."""
-    from cnmf_e.ops.hals import hals_temporal_sweeps
+    from cnmf_e_tpu.ops.hals import hals_temporal_sweeps
     H = W = 24
     T = 300
     K = 3
@@ -114,8 +114,8 @@ def _late_firing_movie(seed=91, H=48, W=48, T=3000, K=8, late_k=3,
     """Movie where the last ``late_k`` neurons fire only after ``t_late``
     (the batch-mode residual-pick acceptance case,
     initComponents_batch.m:71-77)."""
-    from cnmf_e.utils.simulate import (ar1_traces, gaussian_footprints,
-                                       smooth_field, GroundTruth)
+    from cnmf_e_tpu.utils.simulate import (ar1_traces, gaussian_footprints,
+                                           smooth_field, GroundTruth)
     rng_ = np.random.default_rng(seed)
     A, centers = gaussian_footprints(rng_, K, H, W, 2.5, min_dist=12.0)
     K = A.shape[0]
@@ -142,7 +142,7 @@ def test_late_firing_neurons_recovered_by_batches_and_streaming(tmp_path):
     """Neurons first active in the second half are recovered by both batch
     mode (per-batch residual picks + A-union) and streaming (decimated
     proxy init sees the whole session)."""
-    from cnmf_e.models.batch import fit_batches
+    from cnmf_e_tpu.models.batch import fit_batches
     gt = _late_firing_movie()
     params = CNMFEParams(
         init=InitParams(gSig=2.5, gSiz=8, min_corr=0.8, min_pnr=8.0,
@@ -175,7 +175,7 @@ def test_streaming_from_simulated_store(tmp_path):
     """simulate_movie_store -> fit_streaming end-to-end (the scale-demo
     path at toy size): blocks synthesized directly into the store with
     AR state carried across blocks."""
-    from cnmf_e.utils.simulate import simulate_movie_store
+    from cnmf_e_tpu.utils.simulate import simulate_movie_store
 
     store = simulate_movie_store(str(tmp_path / "store"), seed=3, H=48,
                                  W=48, T=750, K=7, gSig=2.5, sn=0.06,
@@ -203,9 +203,9 @@ def test_batch1_traces_survive_A_sync(tmp_path):
     1's full-pipeline trace quality instead of resetting every batch from
     a projection (reference keeps per-batch C and re-runs the temporal
     update, ``initComponents_batch.m:87-113``; VERDICT r2 weak #6)."""
-    from cnmf_e.models.batch import fit_batches
-    from cnmf_e.models.pipeline import CNMFE
-    from cnmf_e.utils.metrics import trace_corr
+    from cnmf_e_tpu.models.batch import fit_batches
+    from cnmf_e_tpu.models.pipeline import CNMFE
+    from cnmf_e_tpu.utils.metrics import trace_corr
     gt = _late_firing_movie()
     params = CNMFEParams(
         init=InitParams(gSig=2.5, gSiz=8, min_corr=0.8, min_pnr=8.0,
@@ -250,7 +250,7 @@ def test_streaming_snapshot_resume_preserves_ar_order(tmp_path):
     merge decay gate for resumed runs)."""
     import dataclasses
 
-    from cnmf_e.config import DeconvParams, TemporalParams
+    from cnmf_e_tpu.config import DeconvParams, TemporalParams
 
     gt = simulate_movie(seed=62, H=32, W=32, T=500, K=4, gSig=2.5,
                         sn=0.08, bg_strength=0.6, min_dist=11.0,
@@ -302,7 +302,7 @@ def test_streaming_mesh_shard_count_invariant(tmp_path):
     import jax
     from jax.sharding import Mesh
 
-    from cnmf_e.parallel.mesh import make_mesh
+    from cnmf_e_tpu.parallel.mesh import make_mesh
 
     gt = simulate_movie(seed=63, H=48, W=48, T=600, K=6, gSig=2.5,
                         sn=0.08, bg_strength=0.7, min_dist=12.0,
